@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Smoke run of the lac_tpu_torch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. device: the card's name and power limit; the host must be x86-64
+   (80-bit long double for Levinson-Durbin) with the native runtime;
+2. builds the port's CUDA kernels from ``lac_tpu_torch/csrc``;
+3. holds every kernel bit-exact against its plain PyTorch version on the
+   card at the planner's shapes, adversarial inputs included, and times
+   both with CUDA events; checks that ``torch.argmin`` returns the first
+   minimum on the card (the planner's tie-breaks rely on it);
+4. encodes a 3-minute 44.1 kHz 16-bit stereo file and a 60 s 96 kHz
+   24-bit stereo file (made from a seed) with the port's FrameEncoder on
+   the card, counting kernel launches, and holds the bytes to the shared
+   numpy/native encoder; runs the port's CLI encode and decode on both
+   and holds the decoded PCM to the input.
+
+Every phase raises on failure (non-zero exit, no result line). The line
+before the last is the kernel record, the last line the device record.
+Exits non-zero without a CUDA card.
+"""
+
+import json
+import os
+import platform
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+
+import numpy as np
+import torch
+
+from lac_tpu_torch import cli
+from lac_tpu_torch.device_pipeline import native_available
+from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.ops import _cuda_lib
+from lac_tpu_torch.ops import cuda_kernels as K
+from lac_tpu_torch.ops._backend import u32_from_bits
+from lac_tpu_torch.ops.stereo import estimate_stereo_mode
+
+BLOCK = 16384
+LANES = 256  # plan batch at chunk width K = 256
+ROWS = LANES * 11  # candidate rows of one plan batch
+PROBE_ROWS = 12 * LANES * 11  # probe plan batch (12 probe lanes per block)
+
+KERNELS = {  # name -> (source, the Pallas function it replaces)
+    "k_cost_sums": ("lac_tpu_torch/csrc/kcost.cu", "lac_tpu/ops/pallas_kernels.py:81"),
+    "split_cumsums_u32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:205"),
+    "cumsum_u32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:218"),
+    "prefix_max_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:319"),
+    "suffix_min_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:325"),
+}
+
+
+def check(ok, msg):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# ------------------------------------------------------------ kernel inputs
+
+
+def adversarial_codes(rows, n, rng):
+    """(rows, n) u32 codes, one pattern per row (row % 6): uniform u32,
+    all 0xFFFFFFFF, escape-range codes >= 2^31, audio-sized codes, long
+    zero runs, and zeros except at the adapter's window edges."""
+    u = np.zeros((rows, n), np.uint64)
+    pat = np.arange(rows) % 6
+    u[pat == 0] = rng.randint(0, 1 << 32, ((pat == 0).sum(), n), dtype=np.uint64)
+    u[pat == 1] = 0xFFFFFFFF
+    u[pat == 2] = rng.randint(1 << 31, 1 << 32, ((pat == 2).sum(), n), dtype=np.uint64)
+    u[pat == 3] = rng.randint(0, 64, ((pat == 3).sum(), n))
+    sparse = rng.randint(1, 1 << 20, ((pat == 4).sum(), n)) * (rng.rand((pat == 4).sum(), n) < 0.002)
+    u[pat == 4] = sparse
+    edges = [e for e in (95, 96, 255, 256, n - 1) if e < n]
+    u[np.ix_(pat == 5, edges)] = 7
+    return u.astype(np.uint32).view(np.int32)
+
+
+def break_indices(codes, rng, reverse):
+    """zero_breaks-style scan operands: where(z, sentinel, index) from the
+    codes' zero pattern; rows of patterns 0-2 carry arbitrary int32."""
+    n = codes.shape[1]
+    idx = np.arange(n, dtype=np.int32)
+    x = np.where(codes == 0, np.int32(n + 2 if reverse else -n - 2), idx).astype(np.int32)
+    rand = np.arange(codes.shape[0]) % 6 < 3
+    x[rand] = rng.randint(-(1 << 31), 1 << 31, (rand.sum(), n), dtype=np.int64).astype(np.int32)
+    return x
+
+
+def kernel_cases(rng, dev):
+    """name -> list of (label, operand on ``dev``) at the planner's shapes."""
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    stack = adversarial_codes(ROWS, BLOCK, rng)  # (B*11, 16384) candidate codes
+    winners = stack[:LANES]  # (B, 16384) selected-candidate codes
+    probes = adversarial_codes(PROBE_ROWS, 256, rng)
+    odd = adversarial_codes(37, 1001, rng)
+    stack_t, winners_t = up(stack), up(winners)
+    kcost = [("(B*11, 16384)", stack_t), ("head (B*11, 256 of 16384)", stack_t[:, :256]),
+             ("probe (12K*11, 256)", up(probes)), ("odd (37, 1001)", up(odd))]
+    for p in (1, 4, 8):
+        part = winners_t.reshape(LANES << p, BLOCK >> p)
+        kcost += [(f"partition p={p} ({LANES << p}, {BLOCK >> p})", part),
+                  (f"partition head p={p}", part[:, : min(256, BLOCK >> p)])]
+    scans = [("(B*11, 16384)", stack), ("(B, 16384)", winners), ("probe (12K*11, 256)", probes),
+             ("odd (37, 1001)", odd)]
+    flags = [(lbl, (a.view(np.uint32) >> 31) + ((a.view(np.uint32) & 1) << 16)) for lbl, a in scans]
+    return {
+        "k_cost_sums": kcost,
+        "split_cumsums_u32": [(lbl, up(a)) for lbl, a in scans],
+        "cumsum_u32": [(lbl, up(f.astype(np.uint32).view(np.int32))) for lbl, f in flags]
+        + [("adversarial (B*11, 16384)", stack_t)],
+        "prefix_max_i32": [(lbl, up(break_indices(a, rng, False))) for lbl, a in scans],
+        "suffix_min_i32": [(lbl, up(break_indices(a, rng, True))) for lbl, a in scans],
+    }
+
+
+def as_values(name, out):
+    """Kernel output -> int64 values (u32 sums, i32 scans) for the diff."""
+    outs = out if isinstance(out, tuple) else (out,)
+    conv = (lambda t: t.to(torch.int64)) if name.endswith("_i32") else u32_from_bits
+    return [conv(t) for t in outs]
+
+
+def time_ms(fn, x, iters=20):
+    for _ in range(3):
+        fn(x)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(x)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def check_kernels(rng):
+    records = {}
+    for name, cases in kernel_cases(rng, torch.device("cuda")).items():
+        kern, plain = getattr(K, name), getattr(K, name + "_plain")
+        err = 0
+        for label, x in cases:
+            got, want = as_values(name, kern(x)), as_values(name, plain(x))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = max(err, int((g - w).abs().max().item()) if g.numel() else 0)
+            check(err == 0, f"{name} {label}: kernel differs from its plain version (max |diff| {err})")
+            print(f"  {name:18s} {label:34s} exact")
+        main = cases[0][1]
+        t = [time_ms(plain, main), time_ms(kern, main), time_ms(kern, main), time_ms(plain, main)]
+        records[name] = {"max_abs_err": float(err), "ms": min(t[1], t[2]), "plain_ms": min(t[0], t[3])}
+        print(f"  {name:18s} {cases[0][0]}: kernel {t[1]:.4f} / {t[2]:.4f} ms, "
+              f"plain {t[0]:.4f} / {t[3]:.4f} ms (CUDA events, 20 launches)")
+    return records
+
+
+def check_argmin_ties(rng):
+    for shape, hi in (((ROWS, 17), 3), ((LANES, 11), 2), ((LANES * 256, 16), 2)):
+        x = rng.randint(0, hi, shape).astype(np.int64)
+        got = torch.argmin(torch.from_numpy(x).cuda(), dim=-1).cpu().numpy()
+        check(np.array_equal(got, np.argmin(x, axis=-1)), f"torch.argmin on the card is not first-minimum {shape}")
+    print("  torch.argmin: first minimum on ties (3 shapes)")
+
+
+# ------------------------------------------------------------ audio
+
+
+def gliding_stereo(frames, sample_rate, depth, seed):
+    """Music-like gliding sines under a slow envelope (certain-LR,
+    certain-MS and uncertain stereo blocks all occur)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(frames, dtype=np.float64) / sample_rate
+    sig = np.zeros(frames)
+    for f0, f1, amp in ((220, 440, 0.3), (880, 860, 0.2), (3520, 3300, 0.08)):
+        sig += amp * np.sin(2 * np.pi * np.cumsum(np.linspace(f0, f1, frames)) / sample_rate)
+    noise = rng.standard_normal(frames)
+    for _ in range(2):
+        noise = 0.5 * noise + 0.5 * np.concatenate([[0.0], noise[:-1]])
+    sig += 0.05 * noise
+    env = 0.5 * (1 + np.sin(2 * np.pi * 0.37 * t))
+    scale, lim = (1, 1 << 15) if depth == 16 else (256, 1 << 23)
+    left = np.clip(sig * env * 28000 * scale, -lim, lim - 1).astype(np.int32)
+    right = np.clip(np.roll(sig, 7) * env * 26500 * scale, -lim, lim - 1).astype(np.int32)
+    return left, right
+
+
+def write_wav(path, left, right, sample_rate, depth):
+    inter = np.stack([left, right], axis=1).reshape(-1)
+    if depth == 16:
+        data = inter.astype("<i2").tobytes()
+    else:
+        data = inter.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    with wave.open(path, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(depth // 8)
+        w.setframerate(sample_rate)
+        w.writeframes(data)
+
+
+def read_wav(path):
+    with wave.open(path, "rb") as w:
+        ch, width, frames = w.getnchannels(), w.getsampwidth(), w.getnframes()
+        data = w.readframes(frames)
+    if width == 2:
+        x = np.frombuffer(data, "<i2").astype(np.int32)
+    else:
+        b = np.frombuffer(data, np.uint8).reshape(-1, 3).astype(np.int32)
+        x = ((b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) ^ 0x800000) - 0x800000
+    return x.reshape(-1, ch)
+
+
+FILES = (
+    ("3 min 44.1 kHz 16-bit stereo", 44100, 16, 7_938_000, 1),
+    ("60 s 96 kHz 24-bit stereo", 96000, 24, 5_760_000, 2),
+)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+
+    # 1. device and host
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    x87 = np.finfo(np.longdouble).machep == -63
+    print(f"host: machine={platform.machine()} native_available={native_available()} "
+          f"x87_long_double={x87} torch={torch.__version__} cuda={torch.version.cuda}")
+    check(platform.machine() == "x86_64" and x87, "the host LD needs x86-64's 80-bit long double")
+    check(native_available(), "the native runtime (g++) did not build")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _cuda_lib.load()
+    info = _cuda_lib.build_info
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info['seconds'] or 0:.1f} s) -> {info['path']}")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # 3. kernels against their plain versions
+    rng = np.random.RandomState(20261016)
+    print("kernels vs plain versions (bit-exact):")
+    records = check_kernels(rng)
+    check_argmin_ties(rng)
+
+    # 4. real-size encodes through the port's main path
+    audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
+             for label, sr, depth, frames, seed in FILES]
+    refs = []
+    for label, sr, depth, (left, right) in audio:
+        nfull = len(left) // BLOCK
+        lm = torch.from_numpy(left[: nfull * BLOCK].reshape(nfull, BLOCK)).cuda()
+        rm = torch.from_numpy(right[: nfull * BLOCK].reshape(nfull, BLOCK)).cuda()
+        _, un = estimate_stereo_mode(lm, rm, torch.ones_like(lm, dtype=torch.bool))
+        n_un = int(un.sum())
+        check(0 < n_un < nfull, f"{label}: want certain and uncertain blocks, got {n_un}/{nfull} uncertain")
+        t0 = time.perf_counter()
+        refs.append(FrameEncoder(12, 2, sr, depth, device="cuda").host_encoder().encode(left, right))
+        print(f"{label}: {len(left)} frames, {nfull} full blocks ({n_un} uncertain); "
+              f"host numpy/native reference {time.perf_counter() - t0:.2f} s, {len(refs[-1])} bytes")
+
+    K.reset_launches()
+    per_file = []
+    for (label, sr, depth, (left, right)), ref in zip(audio, refs):
+        before = dict(K.launches)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = FrameEncoder(12, 2, sr, depth, device="cuda").encode(left, right)
+        torch.cuda.synchronize()
+        per_file.append((time.perf_counter() - t0, {k: K.launches[k] - before[k] for k in before},
+                         torch.cuda.max_memory_allocated()))
+        check(got == ref, f"{label}: port bytes differ from the numpy/native encoder")
+    launches = dict(K.launches)
+    check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for (label, sr, depth, (left, right)), ref, (first_s, counts, peak) in zip(audio, refs, per_file):
+            t0 = time.perf_counter()
+            again = FrameEncoder(12, 2, sr, depth, device="cuda").encode(left, right)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            check(again == ref, f"{label}: second port encode differs")
+            wav, lac, back = (os.path.join(tmp, f) for f in ("in.wav", "out.lac", "back.wav"))
+            write_wav(wav, left, right, sr, depth)
+            check(cli.main(["encode", wav, lac]) == 0, f"{label}: CLI encode failed")
+            with open(lac, "rb") as f:
+                check(f.read() == ref, f"{label}: CLI bytes differ from the numpy/native encoder")
+            check(cli.main(["decode", lac, back]) == 0, f"{label}: CLI decode failed")
+            pcm = read_wav(back)
+            check(np.array_equal(pcm[:, 0], left) and np.array_equal(pcm[:, 1], right),
+                  f"{label}: decoded PCM differs from the input")
+            print(f"{label}: port bytes == reference; decode PCM-exact; "
+                  f"encode {first_s:.3f} s first, {warm_s:.3f} s second = {len(left) / warm_s:,.0f} frames/s; "
+                  f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+
+    check("jax" not in sys.modules, "jax was imported")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+         "launches": launches[name], **records[name]} for name in KERNELS
+    ]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,67 @@
+"""lac_tpu_torch — the LAC codec's full-block encode path on PyTorch + CUDA.
+
+A port of :mod:`lac_tpu` (JAX/XLA/Pallas) for NVIDIA Hopper. The array
+programs (residuals, cost models, Rice k-adaptation, plan selection)
+are PyTorch; the five Pallas kernels on the planner's path are CUDA C++
+kernels written for ``sm_90a`` (``lac_tpu_torch/csrc``), each with a
+plain PyTorch version that CPU tensors take (:mod:`.ops.cuda_kernels`).
+
+The JAX-free host layers of :mod:`lac_tpu` are shared, not copied: wire
+format, WAV I/O, the native C++ runtime (plan replay / emit), the
+80-bit Levinson-Durbin, frame assembly and the decoder. Output bytes
+are identical to :mod:`lac_tpu`'s for the same input and knobs.
+
+Every public entry point takes an explicit ``device``; array helpers
+run on the device of the tensors they are given. Nothing here imports
+``jax``.
+"""
+
+import numpy as np
+import torch
+
+__version__ = "0.1.0"
+
+
+def upload(a, device):
+    """numpy array -> tensor on ``device``. CUDA copies go through pinned
+    memory without blocking, so an upload never waits for the device
+    work queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class HostCopy:
+    """A device->host copy started now and awaited by :meth:`numpy`
+    (pinned buffer + CUDA event; the tensor itself on the CPU)."""
+
+    def __init__(self, t):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` (str or torch.device) -> torch.device, checked: a CUDA
+    device without a usable card raises instead of silently running on
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev

@@ -1,0 +1,185 @@
+"""The port's kernel wrappers (lac_tpu_torch/ops/cuda_kernels.py) on the CPU.
+
+On CPU tensors each wrapper takes its plain PyTorch version. Here every
+plain version is held bit-exact against the Pallas kernel it replaces,
+run in interpret mode as tests/test_pallas.py runs it, and against
+numpy, on adversarial inputs (all 0xFFFFFFFF, codes >= 2^31, long zero
+runs, the adapter's window edges 95/96/255/256). Odd row lengths have no
+Pallas tiling and are held against numpy only. The CUDA kernels
+themselves are held against the same plain versions on the card by
+chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from lac_tpu.ops import pallas_kernels as pk  # noqa: E402
+from lac_tpu_torch.ops import _cuda_lib  # noqa: E402
+from lac_tpu_torch.ops import cuda_kernels as K  # noqa: E402
+
+ROWS = 16
+NS = [256, 6144, 1001]  # probe width, three 2048-wide scan tiles, odd
+
+
+def _codes(rows, n, seed):
+    """u32 codes, one adversarial pattern per row (row % 6)."""
+    rng = np.random.RandomState(seed)
+    u = np.zeros((rows, n), np.uint64)
+    pat = np.arange(rows) % 6
+    u[pat == 0] = rng.randint(0, 1 << 32, ((pat == 0).sum(), n), dtype=np.uint64)
+    u[pat == 1] = 0xFFFFFFFF
+    u[pat == 2] = rng.randint(1 << 31, 1 << 32, ((pat == 2).sum(), n), dtype=np.uint64)
+    u[pat == 3] = rng.randint(0, 64, ((pat == 3).sum(), n))
+    u[pat == 4] = rng.randint(1, 1 << 20, ((pat == 4).sum(), n)) * (rng.rand((pat == 4).sum(), n) < 0.01)
+    edges = [e for e in (95, 96, 255, 256, n - 1) if e < n]
+    u[np.ix_(pat == 5, edges)] = 7
+    return u.astype(np.uint32)
+
+
+def _breaks(u, reverse, seed):
+    """zero_breaks operands from the codes' zero pattern; rows of patterns
+    0-2 carry arbitrary int32."""
+    n = u.shape[1]
+    x = np.where(u == 0, np.int32(n + 2 if reverse else -n - 2), np.arange(n, dtype=np.int32)).astype(np.int32)
+    rand = np.arange(u.shape[0]) % 6 < 3
+    x[rand] = np.random.RandomState(seed).randint(-(1 << 31), 1 << 31, (rand.sum(), n), dtype=np.int64)
+    return x
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _i32(a):
+    return jax.lax.bitcast_convert_type(jnp.asarray(a), "int32")
+
+
+def _scan_call(kernel, n, outs, scratch, reverse=False):
+    """Pallas scan kernel in interpret mode over (ROWS, n): 2048-wide
+    column tiles where n allows, else one tile per row block."""
+    tc = pk._SCAN_TC if n % pk._SCAN_TC == 0 else n
+    ncols = n // tc
+    cmap = (lambda i, j: (i, jnp.int32(ncols - 1) - j)) if reverse else (lambda i, j: (i, j))
+    spec = pl.BlockSpec((pk._SCAN_TR, tc), cmap, memory_space=pltpu.VMEM)
+    return pl.pallas_call(
+        kernel,
+        grid=(ROWS // pk._SCAN_TR, ncols),
+        in_specs=[spec],
+        out_specs=[spec] * outs if outs > 1 else spec,
+        out_shape=[jax.ShapeDtypeStruct((ROWS, n), jnp.int32)] * outs if outs > 1
+        else jax.ShapeDtypeStruct((ROWS, n), jnp.int32),
+        scratch_shapes=[pltpu.VMEM((pk._SCAN_TR, 1), jnp.int32)] * scratch,
+        interpret=True,
+    )
+
+
+def _numpy_kcost(u):
+    hi = (u >> 16).astype(np.uint64)
+    lo = (u & 0xFFFF).astype(np.uint64)
+    s = np.stack([hi.sum(-1)] + [(lo >> k).sum(-1) for k in range(16)], axis=-1)
+    return (s % (1 << 32)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_k_cost_sums_plain(n):
+    u = _codes(ROWS, n, 1)
+    got = K.k_cost_sums(_t(u.view(np.int32))).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, _numpy_kcost(u))
+    if n % 128 == 0:
+        call = pl.pallas_call(
+            pk._kernel,
+            out_shape=jax.ShapeDtypeStruct((ROWS, 128), jnp.int32),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            interpret=True,
+        )
+        want = np.asarray(call(_i32(u)))[:, :17].view(np.uint32)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_k_cost_sums_strided_head_view():
+    """The planner reduces the 256-sample head of each row in place."""
+    u = _codes(ROWS, 6144, 2)
+    view = _t(u.view(np.int32))[:, :256]
+    assert view.stride() == (6144, 1)
+    np.testing.assert_array_equal(K.k_cost_sums(view).numpy().view(np.uint32), _numpy_kcost(u[:, :256]))
+
+
+@pytest.mark.parametrize("n", NS)
+def test_split_cumsums_plain(n):
+    u = _codes(ROWS, n, 3)
+    hi, lo = K.split_cumsums_u32(_t(u.view(np.int32)))
+    hi, lo = hi.numpy().view(np.uint32), lo.numpy().view(np.uint32)
+    np.testing.assert_array_equal(hi, np.cumsum(u >> 16, -1, dtype=np.uint32))
+    np.testing.assert_array_equal(lo, np.cumsum(u & 0xFFFF, -1, dtype=np.uint32))
+    if n % 128 == 0:
+        phi, plo = _scan_call(pk._split_cumsum_kernel, n, outs=2, scratch=2)(_i32(u))
+        np.testing.assert_array_equal(hi, np.asarray(phi).view(np.uint32))
+        np.testing.assert_array_equal(lo, np.asarray(plo).view(np.uint32))
+
+
+@pytest.mark.parametrize("n", NS)
+def test_cumsum_plain(n):
+    u = _codes(ROWS, n, 4)
+    # the adapter's packed micro-window flags, and raw codes (u32 wrap)
+    flags = (u >> 31) + ((u & 1) << 16)
+    for x in (flags.astype(np.uint32), u):
+        got = K.cumsum_u32(_t(x.view(np.int32))).numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, np.cumsum(x, -1, dtype=np.uint32))
+        if n % 128 == 0:
+            want = np.asarray(_scan_call(pk._cumsum_kernel, n, outs=1, scratch=1)(_i32(x)))
+            np.testing.assert_array_equal(got, want.view(np.uint32))
+
+
+@pytest.mark.parametrize("which", ["prefix_max", "suffix_min"])
+@pytest.mark.parametrize("n", NS)
+def test_break_scans_plain(which, n):
+    reverse = which == "suffix_min"
+    x = _breaks(_codes(ROWS, n, 5), reverse, 6)
+    if reverse:
+        got = K.suffix_min_i32(_t(x)).numpy()
+        np.testing.assert_array_equal(got, np.flip(np.minimum.accumulate(np.flip(x, -1), -1), -1))
+        kernel = pk._suffix_min_kernel
+    else:
+        got = K.prefix_max_i32(_t(x)).numpy()
+        np.testing.assert_array_equal(got, np.maximum.accumulate(x, -1))
+        kernel = pk._prefix_max_kernel
+    if n % 128 == 0:
+        want = np.asarray(_scan_call(kernel, n, outs=1, scratch=1, reverse=reverse)(jnp.asarray(x)))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_tensors_never_count_a_launch():
+    K.reset_launches()
+    u = _t(_codes(8, 300, 7).view(np.int32))
+    K.k_cost_sums(u)
+    K.split_cumsums_u32(u)
+    K.cumsum_u32(u)
+    K.prefix_max_i32(u)
+    K.suffix_min_i32(u)
+    assert K.launches == dict.fromkeys(K.launches, 0)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError):
+        K.cumsum_u32(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(TypeError):
+        K.prefix_max_i32(torch.zeros((8,), dtype=torch.int32))
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: no plain-version fallback
+        K.k_cost_sums(torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    """A missing CUDA toolkit is an error, never a silent fallback."""
+    monkeypatch.setattr(_cuda_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    monkeypatch.setattr(_cuda_lib, "BUILD_DIR", _cuda_lib.BUILD_DIR / "_absent_for_test")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda_lib.build_library()

@@ -1,0 +1,80 @@
+"""The port's planner (lac_tpu_torch.encoder.plan_group) against lac_tpu's.
+
+The ``meta`` rows the port's planner returns on CPU tensors must equal
+the jitted ``lac_tpu.encoder.plan_group(xp=jax.numpy)`` and the numpy
+``plan_group`` bit for bit: full 16384-sample blocks, 256-sample stereo
+probes (with the zero-run and partitioning switches) and an odd length
+whose partitions are unequal. Both planners get the same LPC candidate
+set from the host Levinson-Durbin, made from the same PCM.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lac_tpu import encoder as ref_enc  # noqa: E402
+from lac_tpu.ops import lpc as ref_lpc  # noqa: E402
+from lac_tpu_torch.encoder import plan_group, plan_inputs_to_torch  # noqa: E402
+
+
+def _pcm(rows, n, seed):
+    """Lanes that reach every branch of the planner: noise, a tone (LPC
+    wins), silence with bursts (zero runs, bin mode), all-zero and
+    constant lanes (every candidate ties), 24-bit extremes (escape
+    codes), a quiet noisy tone."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n)
+    kinds = [
+        rng.randint(-30000, 30000, n),
+        (np.sin(t / 9.0) * 20000).astype(np.int64),
+        np.where(rng.rand(n) < 0.03, rng.randint(-3, 4, n), 0),
+        np.zeros(n, np.int64),
+        np.full(n, 1234),
+        np.where(t % 2, (1 << 23) - 1, -(1 << 23)),
+        (np.sin(t / 40.0) * 300 + rng.randint(-4, 5, n)).astype(np.int64),
+    ]
+    return np.stack([kinds[(i + seed) % len(kinds)] for i in range(rows)]).astype(np.int32)
+
+
+def _plans(pcm, zero_run, partitioning):
+    """(port meta, jitted JAX meta, numpy meta) for one group."""
+    B, n = pcm.shape
+    coeffs, _, lvalid, _ = ref_enc.lpc_candidates_from_lags(ref_lpc.autocorrelation(pcm, 12), n)
+    ct, vt = plan_inputs_to_torch(coeffs, lvalid, "cpu")
+    port = plan_group(torch.from_numpy(pcm), ct, vt, n, zero_run, partitioning).numpy()
+    jit = ref_enc._jitted_plan(n, zero_run, partitioning, False)(pcm, coeffs, lvalid)
+    ref_np = ref_enc.plan_group(pcm, coeffs, lvalid, n, zero_run, partitioning, np, emit_fields=False)
+    return port, np.asarray(jit["meta"]), np.asarray(ref_np["meta"])
+
+
+def test_full_blocks():
+    port, jit, ref_np = _plans(_pcm(4, 16384, 0), True, True)
+    assert port.dtype == np.int8 and port.shape == (4, 3 + 2 * 256)
+    np.testing.assert_array_equal(port, jit)
+    np.testing.assert_array_equal(port, ref_np)
+
+
+@pytest.mark.parametrize("zero_run,partitioning", [(True, True), (False, True), (True, False)])
+def test_probe_lanes(zero_run, partitioning):
+    port, jit, ref_np = _plans(_pcm(24, 256, 1), zero_run, partitioning)
+    np.testing.assert_array_equal(port, jit)
+    np.testing.assert_array_equal(port, ref_np)
+
+
+def test_odd_length_unequal_partitions():
+    port, jit, ref_np = _plans(_pcm(3, 1000, 2), True, True)
+    assert port[:, 1].max() > 0, "want a lane that accepts an (unequal) partitioning"
+    np.testing.assert_array_equal(port, jit)
+    np.testing.assert_array_equal(port, ref_np)
+
+
+def test_ties_take_the_first_candidate():
+    """Silent lanes give every fixed/FIR candidate equal bits: the
+    lexicographic key picks the lowest predictor type, first in order."""
+    pcm = np.zeros((24, 256), np.int32)
+    pcm[12:] = _pcm(12, 256, 3)
+    port, jit, ref_np = _plans(pcm, True, True)
+    assert (port[:12, 0] == 0).all()
+    np.testing.assert_array_equal(port, jit)
+    np.testing.assert_array_equal(port, ref_np)
