@@ -4,17 +4,25 @@
     python3 chip_smoke.py
 
 1. device: the card's name and power limit; the host must be x86-64
-   (80-bit long double for Levinson-Durbin) with the native runtime;
-2. builds the port's CUDA kernels from ``lac_tpu_torch/csrc``;
+   (80-bit long double for Levinson-Durbin);
+2. builds the port's native runtime (g++) and its CUDA kernels from
+   ``lac_tpu_torch/csrc`` (one nvcc per source, all at once);
 3. holds every kernel bit-exact against its plain PyTorch version on the
    card at the planner's shapes, adversarial inputs included, and times
-   both with CUDA events; checks that ``torch.argmin`` returns the first
-   minimum on the card (the planner's tie-breaks rely on it);
+   both with CUDA events, beside the kernel's bound and, where one
+   PyTorch call computes the same function, that call's time; checks
+   that ``torch.argmin`` returns the first minimum on the card (the
+   planner's tie-breaks rely on it);
 4. encodes a 3-minute 44.1 kHz 16-bit stereo file and a 60 s 96 kHz
    24-bit stereo file (made from a seed) with the port's FrameEncoder on
-   the card, counting kernel launches, and holds the bytes to the shared
-   numpy/native encoder; runs the port's CLI encode and decode on both
-   and holds the decoded PCM to the input.
+   the card, counting kernel launches and plan batches, and holds the
+   bytes to the port's host route (the native planner, plane pipeline
+   off); runs the port's CLI encode and decode on both and holds the
+   decoded PCM to the input;
+5. encodes the 16 golden signals (tests/signals.py) through the port's
+   CLI on the card and holds them byte-for-byte to tests/golden/*.lac,
+   and decodes every golden with the port's decoder, PCM-exact;
+6. checks that neither jax nor any lac_tpu module was imported.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -23,23 +31,31 @@ Exits non-zero without a CUDA card.
 
 import json
 import os
+import pathlib
 import platform
 import subprocess
 import sys
 import tempfile
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from lac_tpu_torch import cli
-from lac_tpu_torch.device_pipeline import native_available
+from lac_tpu_torch import cli, device_pipeline
+from lac_tpu_torch.decoder import FrameDecoder
 from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.ops._backend import u32_from_bits
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
+from lac_tpu_torch.profile_encode import gliding_stereo
+from lac_tpu_torch.runtime import native
+from tests.signals import cases as golden_cases
+
+REPO = pathlib.Path(__file__).resolve().parent
 
 BLOCK = 16384
 LANES = 256  # plan batch at chunk width K = 256
@@ -52,6 +68,38 @@ KERNELS = {  # name -> (source, the Pallas function it replaces)
     "cumsum_u32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:218"),
     "prefix_max_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:319"),
     "suffix_min_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:325"),
+    "k_after_stateful_fused": ("lac_tpu_torch/csrc/k_after.cu", "lac_tpu/ops/pallas_adapt.py:333"),
+}
+
+# Bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory;
+# 32-bit integer instructions at 132 SMs x 128 lanes x 1.98 GHz =
+# 33.45 T/s, the lanes behind the sheet's 67 TFLOP/s float32 figure
+# counted once per instruction (an upper limit for integer work, so the
+# bound stays a lower limit on time).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit integer instructions per input element, counted from each
+# kernel's source (64-bit adds, compares and shifts count 2, a 64-bit
+# multiply 3, the u64 divide by 3 about 6):
+#   k_cost_sums: >>16, &0xFFFF, the hi add, 16 shifts and 16 adds;
+#   split_cumsums_u32: split (2), two serial adds, two fix-up adds, the
+#     shuffle scans of run totals amortised;
+#   cumsum/prefix max/suffix min: one serial op, one fix-up, amortised scans;
+#   k_after_stateful_fused: prefix sum of s (6), k_base (29), drift bias
+#     (50), flags (9), flag prefix and micro bias (18), amortised block
+#     scans (7), store (1).
+OPS_PER_ELEMENT = {
+    "k_cost_sums": 35,
+    "split_cumsums_u32": 8,
+    "cumsum_u32": 4,
+    "prefix_max_i32": 4,
+    "suffix_min_i32": 4,
+    "k_after_stateful_fused": 120,
+}
+# one PyTorch call computing the same function, timed as a yardstick only
+LIBRARY_CALLS = {
+    "cumsum_u32": lambda x: torch.cumsum(x, -1, dtype=torch.int32),
+    "prefix_max_i32": lambda x: torch.cummax(x, -1).values,
 }
 
 
@@ -78,6 +126,27 @@ def adversarial_codes(rows, n, rng):
     edges = [e for e in (95, 96, 255, 256, n - 1) if e < n]
     u[np.ix_(pat == 5, edges)] = 7
     return u.astype(np.uint32).view(np.int32)
+
+
+def window_edge_codes(rows, n):
+    """(rows, n) u32 codes that are non-zero only at the adapter's window
+    edges (95/96, 255/256) and kernel 6's tile edges (2048k - 1, 2048k),
+    or zero only there (row % 4 == 3)."""
+    pos = [p for p in (95, 96, 255, 256) if p < n]
+    pos += [p for k in range(2048, n + 1, 2048) for p in (k - 1, k) if p < n]
+    u = np.zeros((rows, n), np.uint32)
+    for r in range(rows):
+        if r % 4 == 3:
+            u[r] = 3
+            u[r, pos] = 0
+        else:
+            u[r, pos] = (7, 0xFFFFFFFF, 1 << 20)[r % 4]
+    return u.view(np.int32)
+
+
+def k_after_codes(rows, n, rng):
+    """adversarial_codes with four window-edge rows at the end."""
+    return np.concatenate([adversarial_codes(rows - 4, n, rng), window_edge_codes(4, n)])
 
 
 def break_indices(codes, rng, reverse):
@@ -118,6 +187,8 @@ def kernel_cases(rng, dev):
         + [("adversarial (B*11, 16384)", stack_t)],
         "prefix_max_i32": [(lbl, up(break_indices(a, rng, False))) for lbl, a in scans],
         "suffix_min_i32": [(lbl, up(break_indices(a, rng, True))) for lbl, a in scans],
+        "k_after_stateful_fused": [(f"({r}, {n})", up(k_after_codes(r, n, rng)))
+                                   for r, n in ((ROWS, BLOCK), (37, 2048), (37, BLOCK))],
     }
 
 
@@ -126,6 +197,17 @@ def as_values(name, out):
     outs = out if isinstance(out, tuple) else (out,)
     conv = (lambda t: t.to(torch.int64)) if name.endswith("_i32") else u32_from_bits
     return [conv(t) for t in outs]
+
+
+def bound(name, x, out):
+    """(bound_ms, bound_by): the larger of the bytes the function must
+    move (input read once, outputs written once) over the memory rate and
+    its integer instructions over the peak instruction rate."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_ELEMENT[name] * x.numel() / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, x, iters=20):
@@ -155,9 +237,14 @@ def check_kernels(rng):
             print(f"  {name:18s} {label:34s} exact")
         main = cases[0][1]
         t = [time_ms(plain, main), time_ms(kern, main), time_ms(kern, main), time_ms(plain, main)]
-        records[name] = {"max_abs_err": float(err), "ms": min(t[1], t[2]), "plain_ms": min(t[0], t[3])}
+        lib = LIBRARY_CALLS.get(name)
+        library_ms = min(time_ms(lib, main), time_ms(lib, main)) if lib else None
+        bound_ms, bound_by = bound(name, main, kern(main))
+        records[name] = {"max_abs_err": float(err), "ms": min(t[1], t[2]), "plain_ms": min(t[0], t[3]),
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         print(f"  {name:18s} {cases[0][0]}: kernel {t[1]:.4f} / {t[2]:.4f} ms, "
-              f"plain {t[0]:.4f} / {t[3]:.4f} ms (CUDA events, 20 launches)")
+              f"plain {t[0]:.4f} / {t[3]:.4f} ms, library {library_ms}, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) (CUDA events, 20 launches)")
     return records
 
 
@@ -170,25 +257,6 @@ def check_argmin_ties(rng):
 
 
 # ------------------------------------------------------------ audio
-
-
-def gliding_stereo(frames, sample_rate, depth, seed):
-    """Music-like gliding sines under a slow envelope (certain-LR,
-    certain-MS and uncertain stereo blocks all occur)."""
-    rng = np.random.RandomState(seed)
-    t = np.arange(frames, dtype=np.float64) / sample_rate
-    sig = np.zeros(frames)
-    for f0, f1, amp in ((220, 440, 0.3), (880, 860, 0.2), (3520, 3300, 0.08)):
-        sig += amp * np.sin(2 * np.pi * np.cumsum(np.linspace(f0, f1, frames)) / sample_rate)
-    noise = rng.standard_normal(frames)
-    for _ in range(2):
-        noise = 0.5 * noise + 0.5 * np.concatenate([[0.0], noise[:-1]])
-    sig += 0.05 * noise
-    env = 0.5 * (1 + np.sin(2 * np.pi * 0.37 * t))
-    scale, lim = (1, 1 << 15) if depth == 16 else (256, 1 << 23)
-    left = np.clip(sig * env * 28000 * scale, -lim, lim - 1).astype(np.int32)
-    right = np.clip(np.roll(sig, 7) * env * 26500 * scale, -lim, lim - 1).astype(np.int32)
-    return left, right
 
 
 def write_wav(path, left, right, sample_rate, depth):
@@ -222,6 +290,41 @@ FILES = (
 )
 
 
+MODE_FLAG = {0: "--stereo-mode=lr", 1: "--stereo-mode=ms", 2: None}  # as tests/make_goldens.py
+
+
+def check_goldens(tmp):
+    """The golden signals through the port's CLI on the card, byte-for-byte
+    against tests/golden/*.lac; every golden decoded by the port, PCM-exact."""
+    signals = golden_cases()
+    for name, (left, right, sr, depth, smode) in sorted(signals.items()):
+        ch = 2 if len(right) else 1
+        wav, lac = os.path.join(tmp, f"{name}.wav"), os.path.join(tmp, f"{name}.lac")
+        check(write_wav_port(wav, left, right, ch, sr, depth), f"golden {name}: WAV write failed")
+        flag = MODE_FLAG[smode if ch == 2 else 0]
+        check(cli.main(["encode", wav, lac] + ([flag] if flag else [])) == 0, f"golden {name}: CLI encode failed")
+        want = (REPO / "tests" / "golden" / f"{name}.lac").read_bytes()
+        with open(lac, "rb") as f:
+            check(f.read() == want, f"golden {name}: port bytes differ from tests/golden/{name}.lac")
+        dl, dr, _ = FrameDecoder().decode(want)
+        check(np.array_equal(dl, left) and np.array_equal(dr, right), f"golden {name}: decoded PCM differs")
+    print(f"goldens: {len(signals)} signals encode byte-identical to tests/golden/*.lac through the port's CLI "
+          f"on the card; all decode PCM-exact")
+
+
+def count_plan_batches():
+    """Wrap the plane pipeline's planner: plan batches counted by row length."""
+    calls = {}
+    plan = device_pipeline.plan_group
+
+    def counted(pcm, *args):
+        calls[pcm.shape[1]] = calls.get(pcm.shape[1], 0) + 1
+        return plan(pcm, *args)
+
+    device_pipeline.plan_group = counted
+    return calls
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -231,14 +334,15 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     x87 = np.finfo(np.longdouble).machep == -63
-    print(f"host: machine={platform.machine()} native_available={native_available()} "
-          f"x87_long_double={x87} torch={torch.__version__} cuda={torch.version.cuda}")
+    print(f"host: machine={platform.machine()} x87_long_double={x87} torch={torch.__version__} "
+          f"cuda={torch.version.cuda}")
     check(platform.machine() == "x86_64" and x87, "the host LD needs x86-64's 80-bit long double")
-    check(native_available(), "the native runtime (g++) did not build")
 
-    # 2. build
+    # 2. build: the native runtime (g++) beside the kernels (one nvcc per source)
     t0 = time.perf_counter()
-    _cuda_lib.load()
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(native.get_native), ex.submit(_cuda_lib.load)]:
+            f.result()
     info = _cuda_lib.build_info
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info['seconds'] or 0:.1f} s) -> {info['path']}")
     for line in info["log"].splitlines():
@@ -251,7 +355,7 @@ def main():
     records = check_kernels(rng)
     check_argmin_ties(rng)
 
-    # 4. real-size encodes through the port's main path
+    # 4. real-size encodes through the port's main path, held to the port's host route
     audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
              for label, sr, depth, frames, seed in FILES]
     refs = []
@@ -263,10 +367,11 @@ def main():
         n_un = int(un.sum())
         check(0 < n_un < nfull, f"{label}: want certain and uncertain blocks, got {n_un}/{nfull} uncertain")
         t0 = time.perf_counter()
-        refs.append(FrameEncoder(12, 2, sr, depth, device="cuda").host_encoder().encode(left, right))
+        refs.append(FrameEncoder(12, 2, sr, depth, device="cuda").encode_frame(left, right))
         print(f"{label}: {len(left)} frames, {nfull} full blocks ({n_un} uncertain); "
-              f"host numpy/native reference {time.perf_counter() - t0:.2f} s, {len(refs[-1])} bytes")
+              f"host route (native planner) {time.perf_counter() - t0:.2f} s, {len(refs[-1])} bytes")
 
+    batches = count_plan_batches()
     K.reset_launches()
     per_file = []
     for (label, sr, depth, (left, right)), ref in zip(audio, refs):
@@ -278,9 +383,14 @@ def main():
         torch.cuda.synchronize()
         per_file.append((time.perf_counter() - t0, {k: K.launches[k] - before[k] for k in before},
                          torch.cuda.max_memory_allocated()))
-        check(got == ref, f"{label}: port bytes differ from the numpy/native encoder")
+        check(got == ref, f"{label}: port bytes differ from the port's host route")
     launches = dict(K.launches)
+    full, probe = batches.get(BLOCK, 0), batches.get(256, 0)
+    print(f"main path: {full} full-width and {probe} probe plan batches; launches {launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+    check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
+    check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
+          "kernels 2 and 3 must run only on probe plan batches")
 
     with tempfile.TemporaryDirectory() as tmp:
         for (label, sr, depth, (left, right)), ref, (first_s, counts, peak) in zip(audio, refs, per_file):
@@ -293,16 +403,22 @@ def main():
             write_wav(wav, left, right, sr, depth)
             check(cli.main(["encode", wav, lac]) == 0, f"{label}: CLI encode failed")
             with open(lac, "rb") as f:
-                check(f.read() == ref, f"{label}: CLI bytes differ from the numpy/native encoder")
+                check(f.read() == ref, f"{label}: CLI bytes differ from the port's host route")
             check(cli.main(["decode", lac, back]) == 0, f"{label}: CLI decode failed")
             pcm = read_wav(back)
             check(np.array_equal(pcm[:, 0], left) and np.array_equal(pcm[:, 1], right),
                   f"{label}: decoded PCM differs from the input")
-            print(f"{label}: port bytes == reference; decode PCM-exact; "
+            print(f"{label}: port bytes == host route; decode PCM-exact; "
                   f"encode {first_s:.3f} s first, {warm_s:.3f} s second = {len(left) / warm_s:,.0f} frames/s; "
                   f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
 
+        # 5. the goldens (all under 8 full blocks: the host route against the reference binary's bytes)
+        check_goldens(tmp)
+
+    # 6. the port stands alone
     check("jax" not in sys.modules, "jax was imported")
+    ref_mods = sorted(m for m in sys.modules if m == "lac_tpu" or m.startswith("lac_tpu."))
+    check(not ref_mods, f"lac_tpu modules were imported: {ref_mods}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], **records[name]} for name in KERNELS

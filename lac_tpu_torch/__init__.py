@@ -1,19 +1,23 @@
-"""lac_tpu_torch — the LAC codec's full-block encode path on PyTorch + CUDA.
+"""lac_tpu_torch — the LAC codec on PyTorch + CUDA.
 
 A port of :mod:`lac_tpu` (JAX/XLA/Pallas) for NVIDIA Hopper. The array
 programs (residuals, cost models, Rice k-adaptation, plan selection)
-are PyTorch; the five Pallas kernels on the planner's path are CUDA C++
+are PyTorch; the six Pallas kernels of the planner's path are CUDA C++
 kernels written for ``sm_90a`` (``lac_tpu_torch/csrc``), each with a
 plain PyTorch version that CPU tensors take (:mod:`.ops.cuda_kernels`).
 
-The JAX-free host layers of :mod:`lac_tpu` are shared, not copied: wire
-format, WAV I/O, the native C++ runtime (plan replay / emit), the
-80-bit Levinson-Durbin, frame assembly and the decoder. Output bytes
-are identical to :mod:`lac_tpu`'s for the same input and knobs.
+The port owns its host layers: wire format (``format/``), bit reader
+(``bitio/``), WAV I/O (``io/``), staged output and thread resolution
+(``utils/``), the native C++ runtime (``runtime/``: plan replay, host
+planner, decoders), the 80-bit Levinson-Durbin, the host route and frame
+assembly (``encoder``), the decoder and the CLI. It imports torch, numpy
+and the standard library, never ``jax`` and nothing of ``lac_tpu``.
+Output bytes are identical to :mod:`lac_tpu`'s for the same input and
+knobs.
 
-Every public entry point takes an explicit ``device``; array helpers
-run on the device of the tensors they are given. Nothing here imports
-``jax``.
+Entry points (``encoder.FrameEncoder``, ``cli.main``) run on the CUDA
+card unless the caller passes ``device="cpu"``; array helpers run on
+the device of the tensors they are given.
 """
 
 import numpy as np

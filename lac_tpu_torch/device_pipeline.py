@@ -25,14 +25,12 @@ native emit overlap the device's analyze and plan.
 import numpy as np
 import torch
 
-from lac_tpu.encoder import expand_plan, lpc_candidates_from_lags
-from lac_tpu.format import constants as C
-from lac_tpu.runtime.native import emit_blocks_planes_native, native_available
-
 from . import HostCopy, upload
-from .encoder import plan_group, plan_inputs_to_torch
+from .encoder import expand_plan, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
+from .format import constants as C
 from .ops.lpc import autocorrelation
 from .ops.stereo import estimate_stereo_mode, ms_transform
+from .runtime import native
 
 N = C.MAX_BLOCK_SIZE
 PROBE = C.STEREO_PROBE_SIZE
@@ -236,11 +234,9 @@ class _ChunkJob:
         slots = np.asarray([s for _, _, s in recs], np.uint8)
         starts = np.zeros(len(recs), np.uint32)
         plan = expand_plan(meta[sel], self.coeffs[:, sel], self.used[:, sel], self.mvo, N, pipe.partitioning)
-        payloads = emit_blocks_planes_native(
+        payloads = native.emit_blocks_planes(
             pipe.lview, pipe.rview, rows, variants, slots, starts, N, *plan, num_threads=pipe.thread_count,
         )
-        if payloads is None:
-            raise RuntimeError("native emitter unavailable")
 
         result = {}
         for (i, _, slot), pb in zip(recs, payloads):
@@ -265,14 +261,12 @@ class _ChunkJob:
                         slots.append(slot)
                         starts.append(pos)
         plan = expand_plan(meta, self.probe_coeffs, self.probe_used, self.probe_mvo, PROBE, pipe.partitioning)
-        payloads = emit_blocks_planes_native(
+        payloads = native.emit_blocks_planes(
             pipe.lview, pipe.rview,
             np.asarray(rows, np.int32), np.asarray(variants, np.uint8),
             np.asarray(slots, np.uint8), np.asarray(starts, np.uint32), PROBE,
             *plan, num_threads=pipe.thread_count,
         )
-        if payloads is None:
-            raise RuntimeError("native emitter unavailable")
         totals = {}
         for (i, variant), pb in zip(self.probe_recs, payloads):
             t = totals.setdefault(i, {"lr": 0, "ms": 0})
@@ -283,8 +277,6 @@ class _ChunkJob:
 
 class PlanePipeline:
     def __init__(self, frame_enc, left, right, nfull, kind, device):
-        if not native_available():
-            raise RuntimeError("the plane pipeline needs the native runtime (g++) to replay its plans")
         self.device = device
         self.kind = kind
         self.zero_run = bool(frame_enc.zero_run_enabled)

@@ -12,9 +12,9 @@ the ordering and every sum are exact); the kernels of
 :mod:`.ops.cuda_kernels` take the codes as an int32 view of their bits.
 
 ``FrameEncoder`` runs the plane pipeline (:mod:`.device_pipeline`) for
-the full-block prefix and hands its payloads to the shared host encoder
-(``lac_tpu.encoder.FrameEncoder`` with numpy), which plans the tail
-block and assembles the frame.
+the full-block prefix and hands its payloads to its own host route
+(:meth:`FrameEncoder.encode_frame`), which plans every other block with
+the native planner and assembles the frame.
 """
 
 import functools
@@ -22,17 +22,26 @@ import functools
 import numpy as np
 import torch
 
-from lac_tpu.encoder import _CANDIDATES, _LPC_BASE
-from lac_tpu.encoder import FrameEncoder as HostFrameEncoder
-from lac_tpu.format import constants as C
-from lac_tpu.format.partitions import max_partition_order_for_block
-
 from . import resolve_device, upload
+from .format import constants as C
+from .format.header import FrameHeader
+from .format.inspect import parse_block_header
+from .format.partitions import max_partition_order_for_block
 from .format.zigzag import zigzag_encode
-from .ops import adapt, predictors, runs
+from .ops import adapt, lpc, predictors, runs
 from .ops._backend import shift_right, u32_from_bits
 from .ops.cuda_kernels import k_cost_sums
+from .ops.stereo import estimate_stereo_mode_host, ms_transform_host
+from .runtime import native
+from .utils.debug import debug_log
 
+# candidate table: (predictor_type, order_param), in consideration order
+_CANDIDATES = (
+    [(C.PREDICTOR_FIXED, o) for o in range(5)]
+    + [(C.PREDICTOR_FIR, C.FIR_ORDER)]
+    + [(C.PREDICTOR_LPC, o) for o in C.LPC_ORDER_CANDIDATES]
+)
+_LPC_BASE = 6  # index of the first LPC candidate
 _INT64_MAX = torch.iinfo(torch.int64).max
 
 
@@ -301,19 +310,137 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     return torch.cat([c.to(torch.int8) for c in cols], dim=-1)
 
 
+# ======================================================================= host
+
+
+def lpc_candidates_from_lags(R, n):
+    """Host 80-bit Levinson-Durbin from exact int64 lags (B, 13) ->
+    candidate arrays (coeffs (5,B,13) i16, used (5,B) i32, valid (5,B)
+    bool, max_valid_order). One order-12 recursion yields every
+    candidate order as a snapshot (reference lpc.cpp:98-186)."""
+    B = R.shape[0]
+    ncl = len(C.LPC_ORDER_CANDIDATES)
+    coeffs = np.zeros((ncl, B, 13), dtype=np.int16)
+    used = np.zeros((ncl, B), dtype=np.int32)
+    valid = np.zeros((ncl, B), dtype=bool)
+    max_valid_order = min(32, n - 1) if n > 1 else 0
+    Rld = np.asarray(R, dtype=np.longdouble)
+    Rld[:, 0] = np.maximum(Rld[:, 0], np.longdouble(1))
+    A, break_step = lpc.levinson_durbin_snapshots(Rld, 12)
+    for li, cand in enumerate(C.LPC_ORDER_CANDIDATES):
+        if cand > max_valid_order:
+            continue
+        cc, ach, stable = lpc.candidate_coeffs_q15(A, break_step, cand)
+        coeffs[li, :, : cand + 1] = cc
+        used[li] = ach
+        valid[li] = stable
+    return coeffs, used, valid, max_valid_order
+
+
+def expand_plan(meta, coeffs, used, mvo, n, partitioning_enabled):
+    """Expand compact plan metadata to the per-lane replay arrays:
+    (ptype u8, order u8, coeffs_lane (B,33) i16, best_p u8, modes (B,256)
+    u8, ks (B,256) u8).
+
+    Every lane must be in range. The JAX package replans an out-of-range
+    lane down the LPC order ladder (lac_tpu/encoder.py:762); validated
+    PCM never needs it: |x| <= 2^24 (a 24-bit side channel) and 12 Q15
+    taps give |prediction| < 12 * 2^24, so every residual fits int32.
+    """
+    B = meta.shape[0]
+    sel = meta[:, 0].astype(np.int32)
+    best_p = meta[:, 1].astype(np.int32)
+    assert np.all(meta[:, 2] != 0), "an LPC residual left int32: the input is outside the validated PCM range"
+    max_p0 = max_partition_order_for_block(n) if (partitioning_enabled and n >= C.MIN_PARTITION_SIZE) else 0
+    max_parts = 1 << max_p0
+    modes = np.zeros((B, 256), np.uint8)
+    ks = np.zeros((B, 256), np.uint8)
+    modes[:, :max_parts] = meta[:, 3 : 3 + max_parts]
+    ks[:, :max_parts] = meta[:, 3 + max_parts : 3 + 2 * max_parts]
+
+    pt_tab = np.asarray([t for t, _ in _CANDIDATES], np.uint8)
+    op_tab = np.asarray([o for _, o in _CANDIDATES], np.uint8)
+    ptype = pt_tab[sel]
+    order = op_tab[sel].astype(np.int32)
+    lanes = np.arange(B)
+    lpc_mask = sel >= _LPC_BASE
+    li = np.clip(sel - _LPC_BASE, 0, len(C.LPC_ORDER_CANDIDATES) - 1)
+    used_sel = used[li, lanes]
+    order = np.where(lpc_mask, np.clip(used_sel, 1, mvo), order).astype(np.uint8)
+    coeffs_lane = np.zeros((B, 33), np.int16)
+    coeffs_lane[:, :13] = np.where(lpc_mask[:, None], coeffs[li, lanes, :], np.int16(0))
+    return ptype, order, coeffs_lane, best_p.astype(np.uint8), modes, ks
+
+
+def replay_payloads(pcm, meta, coeffs, used, mvo, n, partitioning_enabled, thread_count):
+    """Native plan replay: expand plan metadata to per-lane arrays and
+    emit the wire payloads in one C++ pass (lac_emit_blocks)."""
+    plan = expand_plan(meta, coeffs, used, mvo, n, partitioning_enabled)
+    return native.emit_blocks(pcm, *plan, thread_count)
+
+
+class ChannelBlockEncoder:
+    """Host route for groups of equal-length channel blocks: native
+    autocorrelation, the 80-bit Levinson-Durbin, the native planner and
+    native plan replay (the numpy/native branch of
+    lac_tpu/encoder.py:843-1037). Output bytes do not depend on how
+    lanes are batched."""
+
+    GROUP_LANES = 256  # lanes per native call: bounds the emit buffers
+
+    def __init__(self, zero_run_enabled=True, partitioning_enabled=True, thread_count=0):
+        self.zero_run_enabled = bool(zero_run_enabled)
+        self.partitioning_enabled = bool(partitioning_enabled)
+        self.thread_count = int(thread_count)
+
+    def lpc_analysis(self, pcm, n):
+        """(B, n) int32 -> LPC candidate arrays (see :func:`lpc_candidates_from_lags`)."""
+        B = pcm.shape[0]
+        max_valid_order = min(32, n - 1) if n > 1 else 0
+        if not any(c <= max_valid_order for c in C.LPC_ORDER_CANDIDATES):
+            ncl = len(C.LPC_ORDER_CANDIDATES)
+            return (np.zeros((ncl, B, 13), np.int16), np.zeros((ncl, B), np.int32),
+                    np.zeros((ncl, B), bool), max_valid_order)
+        return lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
+
+    def encode_group(self, pcm):
+        """Encode a (B, n) int32 group; returns the list of payload bytes."""
+        pcm = np.ascontiguousarray(pcm, dtype=np.int32)
+        n = pcm.shape[1]
+        out = []
+        for lo in range(0, pcm.shape[0], self.GROUP_LANES):
+            sub = pcm[lo : lo + self.GROUP_LANES]
+            coeffs, used, lvalid, mvo = self.lpc_analysis(sub, n)
+            meta = native.plan_blocks(sub, coeffs, lvalid, self.zero_run_enabled, self.partitioning_enabled,
+                                      self.thread_count)
+            out += replay_payloads(sub, meta, coeffs, used, mvo, n, self.partitioning_enabled, self.thread_count)
+        return out
+
+    def encode_lanes(self, data_list):
+        """Encode channel blocks of any lengths (grouped by length); payloads in order."""
+        out = [None] * len(data_list)
+        by_len = {}
+        for i, d in enumerate(data_list):
+            by_len.setdefault(len(d), []).append(i)
+        for idxs in by_len.values():
+            for i, pb in zip(idxs, self.encode_group(np.stack([data_list[i] for i in idxs]))):
+                out[i] = pb
+        return out
+
+
 # ======================================================================= frame
 
 
 class FrameEncoder:
-    """Whole-file encoder on ``device`` ("cpu" or "cuda"): the plane
-    pipeline plans the full-block prefix (at least
-    ``device_pipeline.MIN_FULL_BLOCKS`` full blocks); the shared host
-    encoder plans the tail and assembles the v3 frame. Shorter inputs
-    are planned on the host alone. Same constructor, setters and output
-    bytes as ``lac_tpu.encoder.FrameEncoder``."""
+    """Whole-file encoder on ``device`` ("cuda" by default, or "cpu"):
+    the plane pipeline plans the full-block prefix on the device (at
+    least ``device_pipeline.MIN_FULL_BLOCKS`` full blocks); the host
+    route (:meth:`encode_frame`) plans the other blocks and assembles
+    the v3 frame. Same constructor, setters and output bytes as
+    ``lac_tpu.encoder.FrameEncoder``."""
 
     def __init__(self, order=12, stereo_mode=C.STEREO_PER_BLOCK, sample_rate=44100,
-                 bit_depth=16, device="cpu"):
+                 bit_depth=16, device="cuda"):
         self.device = resolve_device(device)
         self.order = order
         self.stereo_mode = stereo_mode
@@ -344,34 +471,229 @@ class FrameEncoder:
     def set_debug_partitions(self, enabled):
         self.debug_partitions = enabled
 
-    def host_encoder(self):
-        """The shared numpy/native ``lac_tpu`` encoder with this encoder's
-        settings: it plans the tail and assembles the frame, and on its
-        own it is the reference the port's bytes are held to."""
-        host = HostFrameEncoder(self.order, self.stereo_mode, self.sample_rate, self.bit_depth, xp=np)
-        host.set_zero_run_enabled(self.zero_run_enabled)
-        host.set_partitioning_enabled(self.partitioning_enabled)
-        host.set_thread_count(self.thread_count)
-        host.set_debug_lpc(self.debug_lpc)
-        host.set_debug_stereo_est(self.debug_stereo_est)
-        host.set_debug_partitions(self.debug_partitions)
-        return host
+    def _validate(self, left, right):
+        if len(left) == 0:
+            raise ValueError("left channel must not be empty")
+        if len(right) and len(right) != len(left):
+            raise ValueError(
+                f"right channel size ({len(right)}) must match left channel size ({len(left)})"
+            )
+        if self.sample_rate not in C.SUPPORTED_SAMPLE_RATES:
+            raise ValueError(f"unsupported sample rate: {self.sample_rate}")
+        if self.bit_depth not in C.SUPPORTED_BIT_DEPTHS:
+            raise ValueError(f"unsupported bit depth: {self.bit_depth}")
+        if self.stereo_mode > 2:
+            raise ValueError(f"unsupported stereo mode: {self.stereo_mode}")
+        lo, hi = C.pcm_range(self.bit_depth)
+        for name, ch in (("left", left), ("right", right)):
+            if len(ch) and (int(ch.min()) < lo or int(ch.max()) > hi):
+                raise ValueError(f"{name} sample is outside the configured PCM bit depth")
+
+    def _channels(self, left, right):
+        left = np.ascontiguousarray(left, dtype=np.int32)
+        right = np.ascontiguousarray(right, dtype=np.int32) if len(right) else np.empty(0, np.int32)
+        self._validate(left, right)
+        return left, right
 
     def encode(self, left, right=()):
         """Encode PCM channel vectors to a complete .lac frame (bytes)."""
         from . import device_pipeline
 
-        left = np.ascontiguousarray(left, dtype=np.int32)
-        right = np.ascontiguousarray(right, dtype=np.int32) if len(right) else np.empty(0, np.int32)
-        host = self.host_encoder()
-        host._validate(left, right)
+        left, right = self._channels(left, right)
         nfull = len(left) // C.MAX_BLOCK_SIZE
+        planes = None
         if device_pipeline.applicable(nfull):
             if not len(right):
                 kind = "mono"
             else:
                 kind = {C.STEREO_LR: "lr", C.STEREO_MS: "ms", C.STEREO_PER_BLOCK: "auto"}[self.stereo_mode]
-            host._injected_planes = device_pipeline.encode_full_blocks(
-                self, left, right, nfull, kind, self.device
-            )
-        return host.encode(left, right)
+            planes = device_pipeline.encode_full_blocks(self, left, right, nfull, kind, self.device)
+        return self._encode_frame(left, right, planes)
+
+    def encode_frame(self, left, right=(), planes=None):
+        """The host route: plan every block that ``planes`` does not hold
+        with the native planner, then assemble the v3 frame
+        (lac/encoder.cpp:215-466).
+
+        ``planes``: the plane pipeline's result for the full-block prefix
+        (payloads {block: {slot: bytes}}, stereo flags {block: 0|1},
+        uncertain {block: bool}), or None to plan every block here.
+        """
+        return self._encode_frame(*self._channels(left, right), planes)
+
+    def _encode_frame(self, left, right, planes):
+        is_stereo = len(right) > 0
+        stereo_mode = self.stereo_mode if is_stereo else 0
+        force_ms = is_stereo and stereo_mode == C.STEREO_MS
+        per_block = is_stereo and stereo_mode == C.STEREO_PER_BLOCK
+        N = C.MAX_BLOCK_SIZE
+
+        n = len(left)
+        starts = list(range(0, n, N))
+        sizes = [min(N, n - s) for s in starts]
+        nblocks = len(starts)
+        plane_payloads, plane_flags, plane_uncertain = planes if planes is not None else ({}, {}, {})
+        if not all(0 <= b < n // N for b in plane_payloads):
+            raise ValueError("plane payloads must cover full blocks of this input only")
+
+        # ---------------- stereo decisions for the blocks planned here
+        decisions = [None] * nblocks
+        if per_block:
+            full = [bi for bi, sz in enumerate(sizes) if sz == N and bi not in plane_payloads]
+            if full:  # the full-block prefix, whenever the plane pipeline did not run
+                nf = len(full)
+                cm, un = native.stereo_estimate(left[: nf * N].reshape(nf, N), right[: nf * N].reshape(nf, N),
+                                                self.thread_count)
+                for j, bi in enumerate(full):
+                    decisions[bi] = (bool(cm[j]), bool(un[j]))
+            for bi, (s, sz) in enumerate(zip(starts, sizes)):
+                if decisions[bi] is None and bi not in plane_payloads:
+                    decisions[bi] = estimate_stereo_mode_host(left[s : s + sz], right[s : s + sz])
+
+        # ---------------- lane planning: (block, slot) lanes, probe lanes
+        # and speculative full variants for uncertain big blocks, dual
+        # full variants for uncertain small blocks
+        lanes, lane_meta = [], []
+        block_flags = [None] * nblocks
+        deferred = []
+        probe_lanes, dual_lanes, spec_lanes = [], [], []
+
+        def lr_channels(s, sz):
+            return [left[s : s + sz], right[s : s + sz]] if is_stereo else [left[s : s + sz]]
+
+        def ms_channels(s, sz):
+            return list(ms_transform_host(left[s : s + sz], right[s : s + sz]))
+
+        for bi, (s, sz) in enumerate(zip(starts, sizes)):
+            if bi in plane_payloads:
+                if per_block:
+                    block_flags[bi] = plane_flags[bi]
+                continue
+            if not is_stereo:
+                lanes.append(left[s : s + sz])
+                lane_meta.append((bi, 0))
+            elif force_ms or (per_block and not decisions[bi][1] and decisions[bi][0]):
+                if per_block:
+                    block_flags[bi] = 1
+                for slot, chd in enumerate(ms_channels(s, sz)):
+                    lanes.append(chd)
+                    lane_meta.append((bi, slot))
+            elif not per_block or not decisions[bi][1]:
+                if per_block:
+                    block_flags[bi] = 0
+                for slot, chd in enumerate(lr_channels(s, sz)):
+                    lanes.append(chd)
+                    lane_meta.append((bi, slot))
+            elif sz <= C.STEREO_FULL_COMPARISON_LIMIT:  # uncertain, small
+                for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
+                    for slot, chd in enumerate(chans):
+                        dual_lanes.append((bi, variant, slot, chd))
+            else:  # uncertain, big: probes pick which speculated variant to keep
+                for ps in (s, s + (sz - C.STEREO_PROBE_SIZE) // 2, s + sz - C.STEREO_PROBE_SIZE):
+                    for chd in lr_channels(ps, C.STEREO_PROBE_SIZE):
+                        probe_lanes.append((bi, "lr", chd))
+                    for chd in ms_channels(ps, C.STEREO_PROBE_SIZE):
+                        probe_lanes.append((bi, "ms", chd))
+                for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
+                    for slot, chd in enumerate(chans):
+                        spec_lanes.append((bi, variant, slot, chd))
+                deferred.append(bi)
+
+        enc = ChannelBlockEncoder(self.zero_run_enabled, self.partitioning_enabled, self.thread_count)
+        payloads = enc.encode_lanes(
+            lanes + [d for *_, d in probe_lanes] + [d for *_, d in dual_lanes] + [d for *_, d in spec_lanes]
+        )
+        off = len(lanes)
+        probe_payloads = payloads[off : off + len(probe_lanes)]
+        off += len(probe_lanes)
+        dual_payloads = payloads[off : off + len(dual_lanes)]
+        spec_payloads = payloads[off + len(dual_lanes) :]
+
+        block_channel_payloads = {bi: {} for bi in range(nblocks)}
+        for bi, chans in plane_payloads.items():
+            block_channel_payloads[bi].update(chans)
+        for (bi, slot), pb in zip(lane_meta, payloads[: len(lanes)]):
+            block_channel_payloads[bi][slot] = pb
+
+        # uncertain small blocks: the full dual comparison by bytes
+        dual_by_block = {}
+        for (bi, variant, slot, _), pb in zip(dual_lanes, dual_payloads):
+            dual_by_block.setdefault(bi, {}).setdefault(variant, {})[slot] = pb
+        for bi, variants in dual_by_block.items():
+            lr_bytes = b"".join(variants["lr"][s] for s in sorted(variants["lr"]))
+            ms_bytes = b"".join(variants["ms"][s] for s in sorted(variants["ms"]))
+            choose_ms = len(ms_bytes) < len(lr_bytes)
+            block_flags[bi] = 1 if choose_ms else 0
+            block_channel_payloads[bi].update(variants["ms" if choose_ms else "lr"])
+
+        # uncertain big blocks: probe byte totals pick the speculated variant
+        probe_by_block = {}
+        for (bi, variant, _), pb in zip(probe_lanes, probe_payloads):
+            probe_by_block.setdefault(bi, {"lr": 0, "ms": 0})[variant] += len(pb)
+        spec_by_block = {}
+        for (bi, variant, slot, _), pb in zip(spec_lanes, spec_payloads):
+            spec_by_block.setdefault(bi, {}).setdefault(variant, {})[slot] = pb
+        for bi in deferred:
+            choose_ms = probe_by_block[bi]["ms"] < probe_by_block[bi]["lr"]
+            block_flags[bi] = 1 if choose_ms else 0
+            block_channel_payloads[bi].update(spec_by_block[bi]["ms" if choose_ms else "lr"])
+
+        self._debug_report(is_stereo, per_block, force_ms, stereo_mode, sizes, block_flags, decisions,
+                           plane_uncertain, block_channel_payloads)
+
+        # ---------------- assembly
+        hdr = FrameHeader(channels=2 if is_stereo else 1, stereo_mode=stereo_mode,
+                          sample_rate=self.sample_rate, bit_depth=self.bit_depth, version=C.FORMAT_VERSION)
+        parts = []
+        block_lens = np.empty(nblocks, np.int64)
+        for bi in range(nblocks):
+            blen = 0
+            if per_block:
+                parts.append(bytes([block_flags[bi]]))
+                blen += 1
+            chans = block_channel_payloads[bi]
+            for slot in sorted(chans):
+                parts.append(chans[slot])
+                blen += len(chans[slot])
+            block_lens[bi] = blen
+        if block_lens.min() == 0 or block_lens.max() > 0xFFFFFFFF:
+            raise RuntimeError("encoded block size is outside format limits")
+        table = np.empty((nblocks, 2), dtype=">u4")
+        table[:, 0] = np.asarray(sizes, np.int64)
+        table[:, 1] = block_lens
+        return hdr.pack() + nblocks.to_bytes(4, "big") + table.tobytes() + b"".join(parts)
+
+    def _debug_report(self, is_stereo, per_block, force_ms, stereo_mode, sizes, block_flags, decisions,
+                      plane_uncertain, block_channel_payloads):
+        """The ``--debug-*`` reports (reference debug-build analogs:
+        [stereo-est] lac/encoder.cpp:356-380; [debug-lpc]
+        block/encoder.cpp:824-835; [part-plan] block/encoder.cpp:558-582),
+        printed from wire data and measured decisions."""
+        nblocks = len(sizes)
+        if self.debug_stereo_est and is_stereo:
+            for bi in range(nblocks):
+                chosen = "MS" if (force_ms or block_flags[bi] == 1) else "LR"
+                if per_block:
+                    if bi in plane_uncertain:
+                        un_flag = int(plane_uncertain[bi])
+                    else:
+                        un_flag = int(decisions[bi][1]) if decisions[bi] else 0
+                    debug_log(f"[stereo-est] block={bi} uncertain={un_flag} chosen={chosen}")
+                debug_log(f"[stereo-mode] global={stereo_mode} block={bi} mode_used={chosen}")
+        if not (self.debug_lpc or self.debug_partitions):
+            return
+        for bi in range(nblocks):
+            chans = block_channel_payloads[bi]
+            for slot in sorted(chans):
+                info = parse_block_header(chans[slot], sizes[bi])
+                if info is None:
+                    continue
+                if self.debug_lpc:
+                    debug_log(f"[debug-lpc] block={sizes[bi]} chosen_order={info['order']}"
+                              f" predictor={info['ptype']} part_order={info['partition_order']}"
+                              f" bytes={len(chans[slot])}")
+                if self.debug_partitions:
+                    parts = " ".join(f"[{i} mode={m} k={k} len={ln}]"
+                                     for i, (m, k, ln) in enumerate(info["partitions"]))
+                    debug_log(f"[part-plan] block={bi} ch={slot} order={info['partition_order']}"
+                              f" parts={len(info['partitions'])} {parts}")

@@ -1,14 +1,17 @@
 """Build and load the port's CUDA kernels (``lac_tpu_torch/csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
+``nvcc`` compiles the sources into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: seconds to
-build, not minutes). The library is built on first use into
-``lac_tpu_torch/build/``, keyed by a hash of the sources and flags, as
-``lac_tpu/runtime/native.py`` does for the g++ runtime. A missing
-toolkit or a failed build raises: there is no silent fallback.
+build, not minutes). Each source compiles in its own ``nvcc`` process,
+all started together, then one link. The library is built on first use
+into ``lac_tpu_torch/build/``, keyed by a hash of the sources and flags,
+under an ``fcntl.flock`` on ``build/.lock`` with per-process temp names,
+as :mod:`..runtime.native` does for the g++ runtime. A missing toolkit
+or a failed build raises: there is no silent fallback.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -18,11 +21,11 @@ import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "kcost.cu", _PKG / "csrc" / "row_scan.cu")
+SOURCES = (_PKG / "csrc" / "kcost.cu", _PKG / "csrc" / "row_scan.cu", _PKG / "csrc" / "k_after.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # C entry -> its leading argument kinds ("p" pointer, "i" long long); every
@@ -33,6 +36,7 @@ _ENTRIES = {
     "lac_cumsum_u32": ("p", "i", "i", "p"),
     "lac_prefix_max_i32": ("p", "i", "i", "p"),
     "lac_suffix_min_i32": ("p", "i", "i", "p"),
+    "lac_k_after_stateful": ("p", "i", "i", "p"),
 }
 
 _lock = threading.Lock()
@@ -65,15 +69,35 @@ def build_library():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr, path=str(out))
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building the same library
+        if not out.exists():
+            _compile_and_link(nvcc, out)
+    build_info["path"] = str(out)
     return out
+
+
+def _compile_and_link(nvcc, out):
+    t0 = time.perf_counter()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, log="".join(logs))
 
 
 def load():

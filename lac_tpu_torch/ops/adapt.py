@@ -3,18 +3,19 @@
 The adaptation state is a pure function of the history of unsigned
 residuals, so the whole k sequence is prefix sums plus elementwise
 integer math. u32/u64 quantities are carried in int64 (every total is
-<= 2^46); the two prefix scans of the stateful adapter run in the
-split-cumsum and cumsum kernels (:mod:`.cuda_kernels`).
+<= 2^46). On the card, full-width rows (2048 <= n <= 16384, n % 2048 ==
+0) take the fused stateful-adapter kernel; other rows take the split
+chain, whose two prefix scans run in the split-cumsum and cumsum
+kernels (:mod:`.cuda_kernels`).
 """
 
 import math
 
 import torch
 
-from lac_tpu.format import constants as C
-
+from ..format import constants as C
 from ._backend import bit_width, shift_right, u32_from_bits
-from .cuda_kernels import cumsum_u32, split_cumsums_u32
+from .cuda_kernels import cumsum_u32, k_after_shape_supported, k_after_stateful_fused, split_cumsums_u32
 
 
 def _k_base_divfree(N, c, bwc):
@@ -54,12 +55,20 @@ def k_after_stateful(u32):
     ``u32``: (..., L) int32 view of the u32 codes. Returns int32 (..., L).
     """
     L = u32.shape[-1]
-    lead = u32.shape[:-1]
-    rows = math.prod(lead)
-    dev = u32.device
-    # prefix sums from the 16-bit-split u32 scans (kernel 2)
-    cs_hi, cs_lo = split_cumsums_u32(u32.reshape(rows, L))
-    s = ((u32_from_bits(cs_hi) << 16) + u32_from_bits(cs_lo)).reshape(lead + (L,))
+    rows = u32.reshape(math.prod(u32.shape[:-1]), L)
+    if u32.is_cuda and k_after_shape_supported(L):
+        return k_after_stateful_fused(rows).reshape(u32.shape)
+    return k_after_chain(rows, split_cumsums_u32, cumsum_u32).reshape(u32.shape)
+
+
+def k_after_chain(u32_rows, split_cumsums, cumsum):
+    """The stateful adapter as a chain of two prefix scans (given as
+    functions of (rows, L) int32) and elementwise torch ops between them."""
+    L = u32_rows.shape[-1]
+    dev = u32_rows.device
+    # prefix sums from the 16-bit-split u32 scans
+    cs_hi, cs_lo = split_cumsums(u32_rows)
+    s = (u32_from_bits(cs_hi) << 16) + u32_from_bits(cs_lo)
     idx = torch.arange(L, dtype=torch.int64, device=dev)
     count = idx + 1
     bwc = bit_width(count)
@@ -79,12 +88,12 @@ def k_after_stateful(u32):
         drift_on & cond_up, 1, torch.where(drift_on & ~cond_up & cond_down, -1, 0)
     ).to(torch.int32)
 
-    # micro window: both flag counts ride one u32 scan (kernel 3) —
-    # is_large in the low 16 bits, is_zero in the high 16 (L < 2^16)
-    u = u32_from_bits(u32)
+    # micro window: both flag counts ride one u32 scan, is_large in the
+    # low 16 bits and is_zero in the high 16 (L < 2^16)
+    u = u32_from_bits(u32_rows)
     q_base = torch.where(k_base >= C.MAX_RICE_K, 0, u >> k_base)
     packed = (q_base > 3).to(torch.int32) + ((q_base == 0).to(torch.int32) << 16)
-    cp = u32_from_bits(cumsum_u32(packed.reshape(rows, L))).reshape(lead + (L,))
+    cp = u32_from_bits(cumsum(packed))
     wp = cp - shift_right(cp, C.MICRO_WINDOW)
     large_cnt = wp & 0xFFFF
     zero_cnt = wp >> 16

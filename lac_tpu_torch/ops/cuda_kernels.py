@@ -1,5 +1,5 @@
-"""The planner's five hand-written Hopper kernels, each beside its plain
-PyTorch version (lac_tpu/ops/pallas_kernels.py).
+"""The planner's six hand-written Hopper kernels, each beside its plain
+PyTorch version (lac_tpu/ops/pallas_kernels.py, lac_tpu/ops/pallas_adapt.py).
 
 Codes travel as an ``int32`` view of the u32 bit pattern; sums wrap in
 u32 exactly as on the TPU (every sum on the planner's path is <= 2^30).
@@ -22,6 +22,7 @@ launches = {
     "cumsum_u32": 0,
     "prefix_max_i32": 0,
     "suffix_min_i32": 0,
+    "k_after_stateful_fused": 0,
 }
 
 
@@ -149,4 +150,36 @@ def suffix_min_i32(x_rows):
     out = torch.empty_like(x_rows)
     _launch("lac_suffix_min_i32", x_rows, x_rows.data_ptr(), rows, n, out.data_ptr())
     launches["suffix_min_i32"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- kernel 6
+# csrc/k_after.cu; replaces pallas_adapt.k_after_stateful_fused (pallas_adapt.py:333)
+
+
+def k_after_shape_supported(n):
+    """Row lengths the fused kernel takes (the TPU kernel's rule,
+    pallas_adapt.shape_supported, without its rows % 8)."""
+    return n % 2048 == 0 and 2048 <= n <= 16384
+
+
+def k_after_stateful_fused_plain(u32_rows):
+    """The split chain of :func:`.adapt.k_after_stateful` with the plain scans."""
+    from .adapt import k_after_chain
+
+    return k_after_chain(u32_rows, split_cumsums_u32_plain, cumsum_u32_plain)
+
+
+def k_after_stateful_fused(u32_rows):
+    """(rows, n) u32 codes (int32 view) -> (rows, n) int32 stateful k_after,
+    in one pass. On the card ``n`` must meet :func:`k_after_shape_supported`."""
+    if _on_cpu(u32_rows, "k_after_stateful_fused"):
+        return k_after_stateful_fused_plain(u32_rows)
+    rows, n = u32_rows.shape
+    if not k_after_shape_supported(n) or u32_rows.data_ptr() % 16:
+        raise ValueError(f"k_after_stateful_fused: the kernel takes n % 2048 == 0, 2048 <= n <= 16384 "
+                         f"and 16-byte aligned rows, got n={n}")
+    out = torch.empty_like(u32_rows)
+    _launch("lac_k_after_stateful", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
+    launches["k_after_stateful_fused"] += 1
     return out

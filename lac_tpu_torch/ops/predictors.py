@@ -1,13 +1,19 @@
-"""Open-loop predictor residuals on tensors (lac_tpu/ops/predictors.py:36-73).
+"""Predictor residuals and reconstruction (lac_tpu/ops/predictors.py).
 
-Fixed orders 0-4 (binomial differencing, raw warmup samples), FIR taps
-{3,-1} >> 2, and the Q15 LPC dot over preceding original samples with
-its int32 in-range flag. Restore (decode) is not part of the port yet.
+Encode side, on tensors (predictors.py:36-73): fixed orders 0-4
+(binomial differencing, raw warmup samples), FIR taps {3,-1} >> 2, and
+the Q15 LPC dot over preceding original samples with its int32
+in-range flag.
+
+Decode side, numpy on the host (predictors.py:116-199): the decoder's
+Python block reader, which gives the canonical error message for a
+block the native decoder rejected, restores through these.
 """
 
+import numpy as np
 import torch
 
-from lac_tpu.format import constants as C
+from ..format import constants as C
 
 from ._backend import shift_right
 
@@ -53,3 +59,70 @@ def lpc_residual(x, coeffs_q15, order):
     diff = x64 - (acc >> 15)
     in_range = ((diff >= C.INT32_MIN) & (diff <= C.INT32_MAX)).all(dim=-1)
     return diff.to(torch.int32), in_range
+
+
+# --------------------------------------------------------------------- decode
+
+# bound on any intermediate difference order of an int32-valued sequence:
+# |delta^m x| <= 2^(31+m) <= 2^36 for m <= 5; beyond it the final samples
+# cannot all fit int32, so the reference would reject too.
+_STAGE_BOUND = 1 << 37
+
+
+def _in_int32(y):
+    return (y >= C.INT32_MIN) & (y <= C.INT32_MAX)
+
+
+def fixed_restore(res, order):
+    """Invert a fixed-order predictor via repeated prefix sums.
+
+    ``res``: (..., L) residuals (warmup entries raw). Returns (samples
+    int64, ok bool (...,)); ``ok`` is False when reconstruction leaves
+    int32 anywhere (block/decoder.cpp:308-342 rejects on the first such
+    step; acceptance is equivalent).
+    """
+    y = np.asarray(res).astype(np.int64)
+    if order == 0:
+        return y, _in_int32(y).all(axis=-1)
+    # map raw warmup samples into the zero-extended difference domain
+    L = y.shape[-1]
+    warm = np.zeros_like(y)
+    for i, wi in enumerate(_FIXED_STENCILS[order][:L]):
+        warm[..., i:] += wi * y[..., : L - i]
+    idx = np.arange(L)
+    y = np.where(idx < order, warm, y)
+    ok = np.ones(y.shape[:-1], dtype=bool)
+    for _ in range(order):
+        y = np.cumsum(y, axis=-1)
+        ok &= (np.abs(y) <= _STAGE_BOUND).all(axis=-1)
+    return y, ok & _in_int32(y).all(axis=-1)
+
+
+def _recurrence_restore(res, taps, shift, min_pred_n):
+    """Closed-loop restore of (..., L) residuals, one row at a time:
+    ``x[n] = r[n] + (sum_i taps[i-1] * x[n-i] >> shift)`` over the
+    ``min(n, len(taps))`` available taps, from ``n >= min_pred_n``."""
+    y = np.asarray(res).astype(np.int64).copy()
+    flat = y.reshape(-1, y.shape[-1])
+    ok = np.ones(flat.shape[0], dtype=bool)
+    for row in range(flat.shape[0]):
+        r = flat[row]
+        for n in range(min_pred_n, r.shape[0]):
+            acc = sum(int(taps[i - 1]) * int(r[n - i]) for i in range(1, min(len(taps), n) + 1))
+            s = int(r[n]) + (acc >> shift)
+            if s < C.INT32_MIN or s > C.INT32_MAX:
+                ok[row] = False
+                break
+            r[n] = s
+    return y, ok.reshape(y.shape[:-1])
+
+
+def fir_restore(res):
+    """Closed-loop FIR reconstruction (block/decoder.cpp:344-358)."""
+    return _recurrence_restore(res, C.FIR_TAPS, C.FIR_SHIFT, C.FIR_ORDER)
+
+
+def lpc_restore(res, coeffs_q15, order):
+    """Closed-loop LPC reconstruction of one lane (block/decoder.cpp:360-403);
+    ``coeffs_q15``: (order+1,) with index 0 unused."""
+    return _recurrence_restore(res, np.asarray(coeffs_q15)[1 : order + 1], 15, 0)

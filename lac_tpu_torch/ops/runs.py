@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from lac_tpu.format import constants as C
+from ..format import constants as C
 
 from .cuda_kernels import prefix_max_i32, suffix_min_i32
 

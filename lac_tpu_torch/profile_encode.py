@@ -1,0 +1,143 @@
+"""Profile warm encodes of the 3-minute 44.1 kHz 16-bit stereo file on the card.
+
+    python -m lac_tpu_torch.profile_encode [--runs N]
+
+The file is the music-like corpus that chip_smoke.py encodes
+(:func:`gliding_stereo`, from a seed). After one cold encode, it
+prints, beside the card's name and power limit:
+
+* the warm encode wall (host clock to ``torch.cuda.synchronize()``),
+  median and range over ``N`` runs;
+* for the full-width (16384) and probe (256) plan batches of one encode:
+  the calls, the host time spent issuing them (``plan_group`` returns
+  before the device finishes), and the torch operators each call issues
+  (top-level operators under the call's profiler range) with the kernel
+  launches among them (``cudaLaunchKernel`` calls, the port's own
+  kernels included);
+* device busy: the union of device-activity intervals over the
+  profiled encode's wall (``torch.profiler`` with CUDA activity), and
+  device time split into kernel 6, kernels 1-5 and everything else.
+"""
+
+import argparse
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from . import device_pipeline
+from .encoder import FrameEncoder
+
+
+def gliding_stereo(frames, sample_rate, depth, seed):
+    """Music-like gliding sines under a slow envelope, made from ``seed``
+    (certain-LR, certain-MS and uncertain stereo blocks all occur)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(frames, dtype=np.float64) / sample_rate
+    sig = np.zeros(frames)
+    for f0, f1, amp in ((220, 440, 0.3), (880, 860, 0.2), (3520, 3300, 0.08)):
+        sig += amp * np.sin(2 * np.pi * np.cumsum(np.linspace(f0, f1, frames)) / sample_rate)
+    noise = rng.standard_normal(frames)
+    for _ in range(2):
+        noise = 0.5 * noise + 0.5 * np.concatenate([[0.0], noise[:-1]])
+    sig += 0.05 * noise
+    env = 0.5 * (1 + np.sin(2 * np.pi * 0.37 * t))
+    scale, lim = (1, 1 << 15) if depth == 16 else (256, 1 << 23)
+    left = np.clip(sig * env * 28000 * scale, -lim, lim - 1).astype(np.int32)
+    right = np.clip(np.roll(sig, 7) * env * 26500 * scale, -lim, lim - 1).astype(np.int32)
+    return left, right
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runs", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_encode: no CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    left, right = gliding_stereo(7_938_000, 44100, 16, 1)
+
+    def encode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FrameEncoder(12, 2, 44100, 16, device="cuda").encode(left, right)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    encode()  # cold: kernel build, CUDA context
+    walls = [encode() for _ in range(args.runs)]
+    print(f"warm encode, 3-min 44.1 kHz 16-bit stereo: median {statistics.median(walls) * 1e3:.1f} ms "
+          f"({min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f}, {args.runs} runs)")
+
+    # one encode with the plan batches timed on the host and marked for the profiler
+    plan = device_pipeline.plan_group
+    host_s = {}
+
+    def timed(pcm, *rest):
+        n = pcm.shape[1]
+        with torch.profiler.record_function(f"plan_group[{n}]"):
+            t0 = time.perf_counter()
+            out = plan(pcm, *rest)
+            host_s.setdefault(n, []).append(time.perf_counter() - t0)
+        return out
+
+    device_pipeline.plan_group = timed
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("encode"):
+                wall = encode()
+    finally:
+        device_pipeline.plan_group = plan
+    # with CUDA activity each record_function range also appears on the
+    # device timeline as an annotation: keep the host ranges, and count
+    # only kernels and copies as device activity
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges_of = {e.name for e in events if e.name == "encode" or e.name.startswith("plan_group[")}
+
+    def launches(ev):
+        return sum(launches(c) for c in ev.cpu_children) + ev.name.startswith("cudaLaunchKernel")
+
+    for n, label in ((16384, "full-width"), (256, "probe")):
+        ranges = [e for e in events if e.name == f"plan_group[{n}]" and e.device_type == cpu]
+        if not ranges:
+            continue
+        ops = [len(e.cpu_children) for e in ranges]
+        kern = [launches(e) for e in ranges]
+        print(f"plan_group {label} (n={n}): {len(ranges)} calls, host dispatch "
+              f"{sum(host_s[n]) * 1e3:.1f} ms in all; per call {statistics.mean(ops):.0f} torch operators, "
+              f"{statistics.mean(kern):.0f} kernel launches")
+    enc_range = next(e for e in events if e.name == "encode" and e.device_type == cpu)
+    lo, hi = enc_range.time_range.start, enc_range.time_range.end
+    dev = [(max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+           if e.device_type == cuda and e.name not in ranges_of and e.time_range.end > lo and e.time_range.start < hi]
+    busy = _union_us(dev) / 1e3
+    device_ms = {"kernel 6": 0.0, "kernels 1-5": 0.0, "other": 0.0}
+    for e in events:
+        if e.device_type == cuda and e.name not in ranges_of:
+            key = ("kernel 6" if "k_after_kernel" in e.name
+                   else "kernels 1-5" if ("row_scan" in e.name or "k_cost_" in e.name) else "other")
+            device_ms[key] += (e.time_range.end - e.time_range.start) / 1e3
+    print("device time by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in device_ms.items()))
+    print(f"device busy over the profiled encode: {busy:.1f} / {(hi - lo) / 1e3:.1f} ms = "
+          f"{100 * busy / ((hi - lo) / 1e3):.1f}% ({len(dev)} device events; host wall {wall * 1e3:.1f} ms)")
+
+
+if __name__ == "__main__":
+    main()

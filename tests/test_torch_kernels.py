@@ -2,12 +2,12 @@
 
 On CPU tensors each wrapper takes its plain PyTorch version. Here every
 plain version is held bit-exact against the Pallas kernel it replaces,
-run in interpret mode as tests/test_pallas.py runs it, and against
-numpy, on adversarial inputs (all 0xFFFFFFFF, codes >= 2^31, long zero
-runs, the adapter's window edges 95/96/255/256). Odd row lengths have no
-Pallas tiling and are held against numpy only. The CUDA kernels
-themselves are held against the same plain versions on the card by
-chip_smoke.py.
+run in interpret mode as tests/test_pallas.py and tests/test_pallas_adapt.py
+run it, and against numpy, on adversarial inputs (all 0xFFFFFFFF, codes
+>= 2^31, long zero runs, the adapter's window edges 95/96/255/256, tile
+edges). Odd row lengths have no Pallas tiling and are held against numpy
+only. The CUDA kernels themselves are held against the same plain
+versions on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -20,6 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from lac_tpu.ops import adapt as ref_adapt  # noqa: E402
+from lac_tpu.ops import pallas_adapt as pa  # noqa: E402
 from lac_tpu.ops import pallas_kernels as pk  # noqa: E402
 from lac_tpu_torch.ops import _cuda_lib  # noqa: E402
 from lac_tpu_torch.ops import cuda_kernels as K  # noqa: E402
@@ -156,6 +158,43 @@ def test_break_scans_plain(which, n):
         np.testing.assert_array_equal(got, want)
 
 
+def _edge_rows(n):
+    """Rows zero except at the adapter's window edges and the 2048-wide
+    tile edges (or zero only there), as chip_smoke.py's kernel-6 cases."""
+    pos = [p for p in (95, 96, 255, 256) if p < n]
+    pos += [p for k in range(2048, n + 1, 2048) for p in (k - 1, k) if p < n]
+    u = np.zeros((4, n), np.uint32)
+    u[:3, pos] = np.array([7, 0xFFFFFFFF, 1 << 20], np.uint32)[:, None]
+    u[3] = 3
+    u[3, pos] = 0
+    return u
+
+
+def _k6_rows(n, seed):
+    """8 rows (the Pallas kernel's row tile): four adversarial patterns
+    and four window/tile-edge rows."""
+    return np.concatenate([_codes(6, n, seed)[[0, 1, 3, 4]], _edge_rows(n)])
+
+
+@pytest.mark.parametrize("n", [2048, 16384])
+def test_k_after_stateful_fused_plain(n):
+    """Kernel 6's plain version against the fused Pallas kernel
+    (interpret mode) and the numpy closed form."""
+    u = _k6_rows(n, 8)
+    assert pa.shape_supported(*u.shape)
+    got = K.k_after_stateful_fused(_t(u.view(np.int32)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref_adapt.k_after_stateful(u.astype(np.uint64), xp=np))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pa.k_after_stateful_fused(u, interpret=True)))
+
+
+def test_k_after_routing_by_shape():
+    """Full-width rows are what the kernel takes; probe and odd rows keep
+    the split chain (kernels 2 and 3 on the card)."""
+    assert all(K.k_after_shape_supported(n) for n in (2048, 4096, 16384))
+    assert not any(K.k_after_shape_supported(n) for n in (256, 1001, 1024, 3000, 32768))
+
+
 def test_cpu_tensors_never_count_a_launch():
     K.reset_launches()
     u = _t(_codes(8, 300, 7).view(np.int32))
@@ -164,6 +203,7 @@ def test_cpu_tensors_never_count_a_launch():
     K.cumsum_u32(u)
     K.prefix_max_i32(u)
     K.suffix_min_i32(u)
+    K.k_after_stateful_fused(_t(_codes(8, 2048, 7).view(np.int32)))
     assert K.launches == dict.fromkeys(K.launches, 0)
 
 
@@ -174,6 +214,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.prefix_max_i32(torch.zeros((8,), dtype=torch.int32))
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no plain-version fallback
         K.k_cost_sums(torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        K.k_after_stateful_fused(torch.zeros((4, 2048), dtype=torch.int32, device="meta"))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -105,7 +105,8 @@ def test_doubled_plan_batches(monkeypatch):
 
 def test_short_input_is_planned_on_the_host():
     """Below MIN_FULL_BLOCKS full blocks the plane pipeline does not run
-    (the JAX package's small-file device planner is not ported yet)."""
+    and the port's host route plans every block (the JAX package's
+    small-file device planner is not ported yet)."""
     left, right = _gliding(N * 2 + 999, seed=7)
     assert not device_pipeline.applicable(len(left) // N)
     port = FrameEncoder(12, 2, 44100, 16, device="cpu").encode(left, right)
@@ -123,16 +124,16 @@ def test_cli_matches_lac_tpu_cli(tmp_path, capsys, small_chunks):
         with open(out, "rb") as f:
             want = f.read()
         os.remove(out)
-        assert cli.main(argv) == 0
+        assert cli.main(argv, device="cpu") == 0
         got_msg = capsys.readouterr()
         with open(out, "rb") as f:
             assert f.read() == want
         assert got_msg.out == want_msg.out and got_msg.out.startswith("Encoded ")
     back = str(tmp_path / "back.wav")
-    assert cli.main(["decode", out, back]) == 0
-    assert cli.main(["encode", wav]) == 1  # usage error, as lac_tpu.cli
-    assert cli.main(["encode", wav, out, "--bogus"]) == 1
-    assert cli.main(["encode", str(tmp_path / "missing.wav"), out]) == 1
+    assert cli.main(["decode", out, back], device="cpu") == 0
+    assert cli.main(["encode", wav], device="cpu") == 1  # usage error, as lac_tpu.cli
+    assert cli.main(["encode", wav, out, "--bogus"], device="cpu") == 1
+    assert cli.main(["encode", str(tmp_path / "missing.wav"), out], device="cpu") == 1
     assert "Failed to read WAV" in capsys.readouterr().err
 
 
