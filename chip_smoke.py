@@ -9,16 +9,18 @@
    ``lac_tpu_torch/csrc`` (one nvcc per source, all at once);
 3. holds every kernel bit-exact against its plain PyTorch version on the
    card at the planner's shapes, adversarial inputs included, and times
-   both with CUDA events, beside the kernel's bound and, where one
+   both at every shape the main path launches the kernel with (CUDA
+   graphs between CUDA events), beside the kernel's bound and, where one
    PyTorch call computes the same function, that call's time; checks
    that ``torch.argmin`` returns the first minimum on the card (the
    planner's tie-breaks rely on it);
 4. encodes a 3-minute 44.1 kHz 16-bit stereo file and a 60 s 96 kHz
    24-bit stereo file (made from a seed) with the port's FrameEncoder on
-   the card, counting kernel launches and plan batches, and holds the
-   bytes to the port's host route (the native planner, plane pipeline
-   off); runs the port's CLI encode and decode on both and holds the
-   decoded PCM to the input;
+   the card, counting kernel launches and plan batches (the timed shapes
+   must account for every launch; each kernel's launches x (time -
+   bound) per file is printed), and holds the bytes to the port's host
+   route (the native planner, plane pipeline off); runs the port's CLI
+   encode and decode on both and holds the decoded PCM to the input;
 5. encodes the 16 golden signals (tests/signals.py) through the port's
    CLI on the card and holds them byte-for-byte to tests/golden/*.lac,
    and decodes every golden with the port's decoder, PCM-exact;
@@ -130,10 +132,11 @@ def adversarial_codes(rows, n, rng):
 
 def window_edge_codes(rows, n):
     """(rows, n) u32 codes that are non-zero only at the adapter's window
-    edges (95/96, 255/256) and kernel 6's tile edges (2048k - 1, 2048k),
-    or zero only there (row % 4 == 3)."""
-    pos = [p for p in (95, 96, 255, 256) if p < n]
-    pos += [p for k in range(2048, n + 1, 2048) for p in (k - 1, k) if p < n]
+    edges (95/96, 255/256), every 256-sample warp edge (256m - 1, 256m) and
+    the start of every micro window that reaches back over one
+    (256m - 97, 256m - 96), so every 2048-sample tile edge of kernel 6, or
+    zero only there (row % 4 == 3)."""
+    pos = sorted({p for m in range(256, n, 256) for p in (m - 97, m - 96, m - 1, m)} | {95, 96, 255, 256})
     u = np.zeros((rows, n), np.uint32)
     for r in range(rows):
         if r % 4 == 3:
@@ -144,9 +147,18 @@ def window_edge_codes(rows, n):
     return u.view(np.int32)
 
 
+def near_threshold_codes(rows, n, rng):
+    """(rows, n) u32 codes that are zero with probability 0.75-0.84 (by
+    row), so that the adapter's micro-window zero count (threshold 77 of 96)
+    crosses its threshold often: a look-back one sample off shows there."""
+    dens = 0.75 + 0.03 * (np.arange(rows) % 4)[:, None]
+    return (rng.randint(1, 1 << 16, (rows, n)) * (rng.rand(rows, n) >= dens)).astype(np.uint32).view(np.int32)
+
+
 def k_after_codes(rows, n, rng):
-    """adversarial_codes with four window-edge rows at the end."""
-    return np.concatenate([adversarial_codes(rows - 4, n, rng), window_edge_codes(4, n)])
+    """adversarial_codes with four near-threshold and four window-edge rows at the end."""
+    return np.concatenate([adversarial_codes(rows - 8, n, rng), near_threshold_codes(4, n, rng),
+                           window_edge_codes(4, n)])
 
 
 def break_indices(codes, rng, reverse):
@@ -161,34 +173,50 @@ def break_indices(codes, rng, reverse):
 
 
 def kernel_cases(rng, dev):
-    """name -> list of (label, operand on ``dev``) at the planner's shapes."""
+    """name -> list of (label, operand on ``dev``, timing). Every case is
+    held bit-exact to the plain version; ``timing`` is None or (plan kind,
+    launches per plan of that kind) for a shape at which the main path
+    launches the kernel (B = 256 lanes of a full-width plan, 12 x 256 of a
+    probe plan), first the shape whose time the kernel record carries."""
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     stack = adversarial_codes(ROWS, BLOCK, rng)  # (B*11, 16384) candidate codes
     winners = stack[:LANES]  # (B, 16384) selected-candidate codes
-    probes = adversarial_codes(PROBE_ROWS, 256, rng)
+    probes = adversarial_codes(PROBE_ROWS, 256, rng)  # (12B*11, 256) probe candidate codes
+    probe_winners = probes[: 12 * LANES]
     odd = adversarial_codes(37, 1001, rng)
-    stack_t, winners_t = up(stack), up(winners)
-    kcost = [("(B*11, 16384)", stack_t), ("head (B*11, 256 of 16384)", stack_t[:, :256]),
-             ("probe (12K*11, 256)", up(probes)), ("odd (37, 1001)", up(odd))]
-    for p in (1, 4, 8):
-        part = winners_t.reshape(LANES << p, BLOCK >> p)
-        kcost += [(f"partition p={p} ({LANES << p}, {BLOCK >> p})", part),
-                  (f"partition head p={p}", part[:, : min(256, BLOCK >> p)])]
-    scans = [("(B*11, 16384)", stack), ("(B, 16384)", winners), ("probe (12K*11, 256)", probes),
-             ("odd (37, 1001)", odd)]
-    flags = [(lbl, (a.view(np.uint32) >> 31) + ((a.view(np.uint32) & 1) << 16)) for lbl, a in scans]
+    stack_t, winners_t, probes_t, pw_t = up(stack), up(winners), up(probes), up(probe_winners)
+    full, probe = ("full", 1), ("probe", 1)
+    kcost = [("(B*11, 16384)", stack_t, full), ("head (B*11, 256 of 16384)", stack_t[:, :256], full),
+             ("probe (12B*11, 256), head = row", probes_t, ("probe", 2))]
+    # partition sweep: the winners cut into 2^p parts, heads of min(256, part) samples
+    for rows0, width, pmax, kind in ((LANES, BLOCK, 8, "full"), (12 * LANES, 256, 3, "probe")):
+        win = winners_t if kind == "full" else pw_t
+        for p in range(1, pmax + 1):
+            part = win.reshape(rows0 << p, width >> p)
+            label = f"{kind} partition p={p} ({rows0 << p}, {width >> p})"
+            if width >> p > 256:
+                kcost += [(label, part, (kind, 1)), (f"{label} head 256", part[:, :256], (kind, 1))]
+            else:
+                kcost.append((f"{label}, head = row", part, (kind, 2)))
+    kcost.append(("odd (37, 1001)", up(odd), None))
+    flags = (probes.view(np.uint32) >> 31) + ((probes.view(np.uint32) & 1) << 16)
+    scans = [("(B*11, 16384)", stack, full), ("(B, 16384)", winners, full),
+             ("probe (12B*11, 256)", probes, probe), ("probe (12B, 256)", probe_winners, probe),
+             ("odd (37, 1001)", odd, None)]
     return {
         "k_cost_sums": kcost,
-        "split_cumsums_u32": [(lbl, up(a)) for lbl, a in scans],
-        "cumsum_u32": [(lbl, up(f.astype(np.uint32).view(np.int32))) for lbl, f in flags]
-        + [("adversarial (B*11, 16384)", stack_t)],
-        "prefix_max_i32": [(lbl, up(break_indices(a, rng, False))) for lbl, a in scans],
-        "suffix_min_i32": [(lbl, up(break_indices(a, rng, True))) for lbl, a in scans],
-        "k_after_stateful_fused": [(f"({r}, {n})", up(k_after_codes(r, n, rng)))
-                                   for r, n in ((ROWS, BLOCK), (37, 2048), (37, BLOCK))],
+        "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe), ("(B*11, 16384)", stack_t, None),
+                              ("odd (37, 1001)", up(odd), None)],
+        "cumsum_u32": [("probe flags (12B*11, 256)", up(flags.astype(np.uint32).view(np.int32)), probe),
+                       ("adversarial (B*11, 16384)", stack_t, None), ("odd (37, 1001)", up(odd), None)],
+        "prefix_max_i32": [(lbl, up(break_indices(a, rng, False)), tm) for lbl, a, tm in scans],
+        "suffix_min_i32": [(lbl, up(break_indices(a, rng, True)), tm) for lbl, a, tm in scans],
+        "k_after_stateful_fused": [(f"({ROWS}, {BLOCK})", up(k_after_codes(ROWS, BLOCK, rng)), full)]
+        + [(f"(37, {n}), {n // 2048} tiles", up(k_after_codes(37, n, rng)), None)
+           for n in range(2048, BLOCK + 1, 2048)],
     }
 
 
@@ -211,41 +239,69 @@ def bound(name, x, out):
 
 
 def time_ms(fn, x, iters=20):
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed between two CUDA events (no host launch gaps, so small shapes
+    are timed on the card and not on the host)."""
     for _ in range(3):
         fn(x)
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(x)
+    graph.replay()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn(x)
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
 
 
 def check_kernels(rng):
-    records = {}
+    """Every case bit-exact; every path shape timed (plain, kernel, kernel,
+    plain). Returns (the kernel records, name -> list of per-shape times)."""
+    records, shapes = {}, {}
     for name, cases in kernel_cases(rng, torch.device("cuda")).items():
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
+        lib = LIBRARY_CALLS.get(name)
         err = 0
-        for label, x in cases:
+        shapes[name] = []
+        for label, x, timing in cases:
             got, want = as_values(name, kern(x)), as_values(name, plain(x))
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 err = max(err, int((g - w).abs().max().item()) if g.numel() else 0)
             check(err == 0, f"{name} {label}: kernel differs from its plain version (max |diff| {err})")
-            print(f"  {name:18s} {label:34s} exact")
-        main = cases[0][1]
-        t = [time_ms(plain, main), time_ms(kern, main), time_ms(kern, main), time_ms(plain, main)]
-        lib = LIBRARY_CALLS.get(name)
-        library_ms = min(time_ms(lib, main), time_ms(lib, main)) if lib else None
-        bound_ms, bound_by = bound(name, main, kern(main))
-        records[name] = {"max_abs_err": float(err), "ms": min(t[1], t[2]), "plain_ms": min(t[0], t[3]),
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        print(f"  {name:18s} {cases[0][0]}: kernel {t[1]:.4f} / {t[2]:.4f} ms, "
-              f"plain {t[0]:.4f} / {t[3]:.4f} ms, library {library_ms}, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) (CUDA events, 20 launches)")
-    return records
+            print(f"  {name:22s} {label:44s} exact")
+            if timing is None:
+                continue
+            t = [time_ms(plain, x), time_ms(kern, x), time_ms(kern, x), time_ms(plain, x)]
+            library_ms = min(time_ms(lib, x), time_ms(lib, x)) if lib else None
+            bound_ms, bound_by = bound(name, x, kern(x))
+            rec = {"kind": timing[0], "per_plan": timing[1], "ms": min(t[1], t[2]),
+                   "plain_ms": min(t[0], t[3]), "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            shapes[name].append(rec)
+            lib_txt = f"{library_ms:.4f} ms" if lib else "none"
+            print(f"    {label} ({timing[0]} plan x{timing[1]}): kernel {t[1]:.4f} / {t[2]:.4f} ms, "
+                  f"plain {t[0]:.4f} / {t[3]:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * bound_ms / rec['ms']:.0f}% of bound (CUDA graph of 20 launches, CUDA events)")
+        first = shapes[name][0]
+        records[name] = {"max_abs_err": float(err), **{k: first[k] for k in
+                                                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    return records, shapes
+
+
+def per_encode(shapes, plans):
+    """Each kernel's launches and its time over its bound at the path
+    shapes, for plan batch counts ``plans`` {"full": F, "probe": P}."""
+    out = {}
+    for name, recs in shapes.items():
+        n = sum(plans[r["kind"]] * r["per_plan"] for r in recs)
+        ms = sum(plans[r["kind"]] * r["per_plan"] * r["ms"] for r in recs)
+        excess = sum(plans[r["kind"]] * r["per_plan"] * (r["ms"] - r["bound_ms"]) for r in recs)
+        out[name] = (n, ms, excess)
+    return out
 
 
 def check_argmin_ties(rng):
@@ -345,14 +401,17 @@ def main():
             f.result()
     info = _cuda_lib.build_info
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info['seconds'] or 0:.1f} s) -> {info['path']}")
+    kernel = None
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {kernel}: {line.strip()}")
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(20261016)
     print("kernels vs plain versions (bit-exact):")
-    records = check_kernels(rng)
+    records, shapes = check_kernels(rng)
     check_argmin_ties(rng)
 
     # 4. real-size encodes through the port's main path, held to the port's host route
@@ -374,8 +433,9 @@ def main():
     batches = count_plan_batches()
     K.reset_launches()
     per_file = []
+    plans_per_file = []
     for (label, sr, depth, (left, right)), ref in zip(audio, refs):
-        before = dict(K.launches)
+        before, plans_before = dict(K.launches), dict(batches)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -383,6 +443,8 @@ def main():
         torch.cuda.synchronize()
         per_file.append((time.perf_counter() - t0, {k: K.launches[k] - before[k] for k in before},
                          torch.cuda.max_memory_allocated()))
+        plans_per_file.append({kind: batches.get(width, 0) - plans_before.get(width, 0)
+                               for kind, width in (("full", BLOCK), ("probe", 256))})
         check(got == ref, f"{label}: port bytes differ from the port's host route")
     launches = dict(K.launches)
     full, probe = batches.get(BLOCK, 0), batches.get(256, 0)
@@ -391,6 +453,15 @@ def main():
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
           "kernels 2 and 3 must run only on probe plan batches")
+    # the timed shapes are every shape the path launches: they account for every launch
+    for (label, *_), (_, counts, _), plans in zip(FILES, per_file, plans_per_file):
+        model = per_encode(shapes, plans)
+        check(all(model[k][0] == counts[k] for k in counts),
+              f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
+        print(f"{label}: {plans['full']} full-width and {plans['probe']} probe plans; per kernel, launches, "
+              f"time at the timed shapes and launches x (time - bound), largest first:")
+        for name, (n, ms, excess) in sorted(model.items(), key=lambda kv: -kv[1][2]):
+            print(f"  {name:22s} {n:4d} launches, {ms:.4f} ms, {excess:.4f} ms over the bound")
 
     with tempfile.TemporaryDirectory() as tmp:
         for (label, sr, depth, (left, right)), ref, (first_s, counts, peak) in zip(audio, refs, per_file):

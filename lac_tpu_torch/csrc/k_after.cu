@@ -17,180 +17,227 @@
 //       most 1) if 4 large >= 288, else -1 (at least -1) if 5 zero >= 384,
 //   k_after = clamp(k_base + bias, 0, 31).
 //
-// Design for Hopper, not carried over from the Pallas body:
-//   * 64-bit integer lanes exist here. Prefix sums and the window products
-//     (< 2^47 for rows of at most 16384 samples) stay in uint64_t, and
-//     floor(x / 3) is an integer division by a constant. The TPU kernel kept
-//     them as base-2^16 limb triples in i32 lanes and divided by 3 in f32,
-//     because Mosaic has no 64-bit integer lanes.
-//   * Blocks run in no order, so the TPU kernel's sequential column grid with
-//     carries in VMEM scratch becomes one block of 256 threads per row that
-//     walks the row in tiles of 2048 samples, 8 contiguous samples per thread
-//     (two 16-byte loads and stores), with both running sums carried in
-//     registers across tiles. Each tile does two block-wide scans: s, then the
-//     packed flags, whose k_base needs s.
-//   * The windows look back 256 samples (s) and 96 (flag sums), into the
-//     previous tile. Shared memory holds the current tile's values behind the
-//     previous tile's last 256 s (u64) and last 96 flag sums (u32), padded one
-//     slot per 8 so that the 8-sample runs of a warp hit distinct banks:
-//     (2304 + 2144) slots * 9/8, 30 KB in all. That stays under the 48 KB of
-//     static shared memory. A whole 16384-sample row (192 KB of s and flag
-//     sums) would need the dynamic-shared-memory opt-in and would leave one
-//     block per SM.
+// Bound on the H100: 4 bytes read and 4 written per sample, 0.110 ms at the
+// path's shape (2816, 16384), against the integer work, counted at 120
+// 32-bit instructions per sample in chip_smoke.py, 0.165 ms at the card's
+// peak instruction rate: it is bound by instructions issued, so the design
+// cuts serial steps, barriers and 64-bit work.
 //
-// Bound: the bytes, 4 read and 4 written per sample, against the integer
-// work, about 100 32-bit integer instructions per sample (64-bit adds,
-// compares and shifts count two or more; counted in chip_smoke.py). At the
-// path's shape (2816, 16384) that is 369 MB against 4.6 G instructions; the
-// larger of the two bounds is stated in PERF.md.
+// Design: one block of 256 threads per row walks it in tiles of 2048
+// samples, 8 contiguous samples per thread, with s before the tile carried
+// in a register. Against the first Hopper version of this kernel:
+//   1. The next tile's codes are copied into shared memory (cp.async, two
+//      buffers, each thread its own 32 bytes) while the block computes this
+//      one, so device-memory latency is off the walk. Scans are per warp
+//      only: s and the flag sums are kept as warp-local inclusive sums in
+//      shared memory with the warp totals beside them, and a look-back into
+//      another warp adds that warp's total (the 256-sample drift window is
+//      exactly one warp back). Each tile takes two block barriers (after the
+//      sums of s, after the flag sums), not four, and no block-wide scan.
+//   2. The previous tile's last warp keeps its sums of s (256 values) and
+//      its last 96 flag sums in small double-buffered arrays, so the next
+//      tile overwrites its shared memory without a trailing barrier.
+//      57-62 registers and 46 KB of static shared memory: 4 blocks per SM.
+//   3. 32-bit arithmetic where the ranges allow it. The window sum
+//      s - s[i-256] <= 256 (2^32 - 1) < 2^40, so lm < 2^32: lm is a u32,
+//      t1 = ((3 lm - 1) >> 2) + 1 < 3 * 2^30 + 1 is a u32 and c * t1 one
+//      32x32->64 multiply. t2 = floor((4 lm + 3) / 3) + 1 = lm + floor(lm / 3)
+//      + 2 can reach 2^33, so c * t2 is c * lm + c * (floor(lm / 3) + 2),
+//      and floor(lm / 3) is the u32 multiply-high by 0xAAAAAAAB shifted right
+//      once, exact for every u32 (no 64-bit division). In k_base,
+//      M >> k0 < 2^bit_width(c) <= 2^15, so one funnel shift of M's two words
+//      gives it for k0 <= 30, and k0 >= 31 gives 31. k_base, the drift bias
+//      and the micro bias are computed without branches and selected.
+//   4. No flag carry: only s crosses tiles, as a u64 register; the micro
+//      window reads the previous tile's last 96 flag sums and flag total.
+// A design with one thread-block cluster per row (one block per tile, the
+// tile totals and look-backs read over distributed shared memory) was
+// measured first and was slower than the one-block-per-row kernel it was to
+// replace: its blocks live for one tile, so each waits on its loads and on
+// two cluster barriers with little else resident to hide them (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;  // 2048 samples
-constexpr int kDrift = 256;               // C.DRIFT_WINDOW
+constexpr int kMaxTiles = 8;              // rows of at most 16384 samples
+constexpr int kDrift = 256;               // C.DRIFT_WINDOW: one warp's samples
 constexpr int kMicro = 96;                // C.MICRO_WINDOW
+constexpr int kMicroLanes = kMicro / kItems;  // lanes whose micro window starts in the previous warp
 constexpr int kMaxK = 31;                 // C.MAX_RICE_K
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__host__ __device__ constexpr int padded(int i) { return i + (i >> 3); }
-
-// Exclusive block-wide sum of one value per thread; ``total`` gets the sum
-// of all. ``warp_tot`` is kWarps slots of shared memory that no other thread
-// reads between this call and the caller's next __syncthreads.
 template <class T>
-__device__ __forceinline__ T block_exclusive_sum(T v, T* warp_tot, T& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T incl = v;
+__device__ __forceinline__ T warp_inclusive_sum(T v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const T y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
+    const T y = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += y;
   }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kWarps ? warp_tot[lane] : T(0);
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const T y = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kWarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  total = warp_tot[kWarps - 1];
-  return incl - v + (warp > 0 ? warp_tot[warp - 1] : T(0));
+  return v;
 }
 
-__device__ __forceinline__ int bit_width64(uint64_t x) { return 64 - __clzll((long long)x); }
+// k_base of a sample with N = s + (c >> 1), 1 <= c <= 16384, without branches
+__device__ __forceinline__ int k_base(u64 N, uint32_t c) {
+  const u64 M = N - c;  // wraps where N < c, a case the last line discards
+  const int k0 = max((64 - __clzll((long long)M)) - (32 - __clz(c)), 0);
+  // for k0 <= 30 the low word of M >> k0, which is all of it (< 2^15); for
+  // k0 >= 31 the minimum below gives 31 whatever it holds
+  const uint32_t q = __funnelshift_r((uint32_t)M, (uint32_t)(M >> 32), k0);
+  const int k = min(k0 + (q >= c ? 1 : 0), kMaxK);
+  return N < 2ull * c ? 0 : k;
+}
+
+// drift bias of a sample with window sum W = s - s[i-256], without branches
+// (the caller keeps it where c > 256 and N >= c)
+__device__ __forceinline__ int drift_bias(u64 N, uint32_t c, u64 W) {
+  const uint32_t lm = (uint32_t)((W + (kDrift >> 1)) >> 8);
+  const bool up = lm >= 1 && N < (u64)c * ((uint32_t)((3ull * lm - 1) >> 2) + 1u);
+  const uint32_t third = __umulhi(lm, 0xAAAAAAABu) >> 1;  // floor(lm / 3)
+  const bool down = N >= (u64)c * lm + (u64)c * (third + 2u);
+  return up ? 1 : down ? -1 : 0;
+}
+
+// packed micro-window flag of a sample: large in the low half, zero in the high
+__device__ __forceinline__ uint32_t flag(uint32_t u, int k) {
+  const uint32_t q = k >= kMaxK ? 0u : u >> k;
+  return (q > 3u ? 1u : 0u) + (q == 0u ? 1u << 16 : 0u);
+}
+
+// 16 bytes from device memory into shared memory, asynchronously
+__device__ __forceinline__ void cp_async16(uint4* smem, const uint32_t* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 __global__ void __launch_bounds__(kThreads)
-k_after_kernel(const uint32_t* __restrict__ codes, int32_t* __restrict__ k_after, long long n) {
-  // logical slot L of s_sh is s[base + L - kDrift]; of f_sh, the flag sum at base + L - kMicro
-  __shared__ unsigned long long s_sh[padded(kDrift + kTile)];
-  __shared__ uint32_t f_sh[padded(kMicro + kTile)];
-  __shared__ unsigned long long s_tot[kWarps];
-  __shared__ uint32_t f_tot[kWarps];
+k_after_kernel(const uint32_t* __restrict__ codes, int32_t* __restrict__ k_after, int tiles) {
+  __shared__ u64 s_sh[kItems][kThreads];       // warp-local inclusive sums of u
+  __shared__ uint32_t f_sh[kItems][kThreads];  // warp-local inclusive sums of the flags
+  __shared__ u64 s_warp[kWarps];               // warp totals of u
+  __shared__ uint32_t f_warp[kWarps];          // warp totals of the flags
+  // the last warp's sums of the previous tile, kept apart for warp 0's look-backs
+  __shared__ u64 last_s[2][kItems][32];
+  __shared__ u64 last_s_tot[2];
+  __shared__ uint32_t last_f[2][kItems][kMicroLanes];
+  __shared__ uint32_t last_f_tot[2];
+  __shared__ uint4 stage[2][2][kThreads];  // the next tile's codes, each thread's own 32 bytes
 
-  const uint32_t* src = codes + (long long)blockIdx.x * n;
-  int32_t* dst = k_after + (long long)blockIdx.x * n;
-  const int j0 = threadIdx.x * kItems;  // this thread's first sample within a tile
+  const int T = threadIdx.x, lane = T & 31, warp = T >> 5;
+  const long long n = (long long)tiles * kTile;
+  const uint32_t* src = codes + (long long)blockIdx.x * n + T * kItems;
+  int32_t* dst = k_after + (long long)blockIdx.x * n + T * kItems;
+  const int j0 = T * kItems;
 
-  // before the row start both sums are 0
-  for (int i = threadIdx.x; i < kDrift; i += kThreads) s_sh[padded(i)] = 0;
-  for (int i = threadIdx.x; i < kMicro; i += kThreads) f_sh[padded(i)] = 0;
-  unsigned long long s_carry = 0;
-  uint32_t f_carry = 0;
-
-  for (long long base = 0; base < n; base += kTile) {
+  cp_async16(&stage[0][0][T], src);
+  cp_async16(&stage[0][1][T], src + 4);
+  u64 carry = 0;  // s before the tile
+  for (int t = 0; t < tiles; ++t) {
+    const int p = t & 1;
+    const long long base = (long long)t * kTile;
+    cp_async_wait_all();
     uint32_t u[kItems];
-    const uint4* in = reinterpret_cast<const uint4*>(src + base + j0);
-    const uint4 a = in[0], b = in[1];
-    u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w, u[4] = b.x, u[5] = b.y, u[6] = b.z, u[7] = b.w;
+    {
+      const uint4 a = stage[p][0][T], b = stage[p][1][T];
+      u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w, u[4] = b.x, u[5] = b.y, u[6] = b.z, u[7] = b.w;
+    }
+    if (t + 1 < tiles) {
+      cp_async16(&stage[p ^ 1][0][T], src + base + kTile);
+      cp_async16(&stage[p ^ 1][1][T], src + base + kTile + 4);
+    }
 
-    // 1. prefix sums s
-    unsigned long long s[kItems];
-    unsigned long long acc = 0;
+    // 1. warp-local inclusive sums of u and the warp totals
+    u64 a[kItems], acc = 0;
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) s[j] = acc += u[j];
-    unsigned long long tile_sum;
-    const unsigned long long s_prefix = s_carry + block_exclusive_sum(acc, s_tot, tile_sum);
-    s_carry += tile_sum;
+    for (int j = 0; j < kItems; ++j) a[j] = acc += u[j];
+    const u64 incl = warp_inclusive_sum(acc);
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      s[j] += s_prefix;
-      s_sh[padded(kDrift + j0 + j)] = s[j];
+      a[j] += incl - acc;
+      s_sh[j][T] = a[j];
+      if (warp == kWarps - 1) last_s[p][j][lane] = a[j];
+    }
+    if (lane == 31) {
+      s_warp[warp] = incl;
+      if (warp == kWarps - 1) last_s_tot[p] = incl;
     }
     __syncthreads();
 
-    // 2. k_base, the drift bias and the packed micro-window flags
+    // 2. s before this warp and the tile's total, from the warp totals
+    u64 wt = lane < kWarps ? s_warp[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const u64 y = __shfl_up_sync(kFull, wt, d);
+      if (lane >= d) wt += y;
+    }
+    const u64 before = __shfl_sync(kFull, wt, (warp + kWarps - 1) & (kWarps - 1));
+    const u64 pre = carry + (warp > 0 ? before : 0);
+    carry += __shfl_sync(kFull, wt, kWarps - 1);
+
+    // the warp 256 samples back: the previous warp, or the previous tile's
+    // last (tile 0's warp 0 has no drift window)
+    const u64* back = warp > 0 ? &s_sh[0][T - 32] : &last_s[p ^ 1][0][lane];
+    const int back_step = warp > 0 ? kThreads : 32;
+    const u64 back_tot = warp > 0 ? s_warp[warp - 1] : last_s_tot[p ^ 1];
+
+    // 3. k_base, the drift bias and the flags
     int kb[kItems], bias[kItems];
-    uint32_t f[kItems];
-    uint32_t facc = 0;
+    uint32_t f[kItems], facc = 0;
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const unsigned long long c = base + j0 + j + 1;
-      const unsigned long long N = s[j] + (c >> 1);
-      int k = 0;
-      if (N >= 2 * c) {
-        const unsigned long long M = N - c;
-        const int k0 = max(bit_width64(M) - bit_width64(c), 0);
-        k = min(kMaxK, k0 + ((M >> k0) >= c ? 1 : 0));
-      }
-      int bd = 0;
-      if (c > kDrift && N >= c) {
-        const unsigned long long lm = (s[j] - s_sh[padded(j0 + j)] + (kDrift >> 1)) >> 8;
-        if (lm >= 1 && N < c * (((3 * lm - 1) >> 2) + 1)) {
-          bd = 1;
-        } else if (N >= c * ((4 * lm + 3) / 3 + 1)) {
-          bd = -1;
-        }
-      }
+      const uint32_t c = (uint32_t)(base + j0 + j + 1);
+      const u64 N = pre + a[j] + (c >> 1);
+      const int k = k_base(N, c);
+      const int bd = drift_bias(N, c, back_tot + a[j] - back[j * back_step]);
+      bias[j] = c > kDrift && N >= c ? bd : 0;
       kb[j] = k;
-      bias[j] = bd;
-      const uint32_t q = k >= kMaxK ? 0u : u[j] >> k;
-      f[j] = facc += (q > 3u ? 1u : 0u) + (q == 0u ? 1u << 16 : 0u);
+      f[j] = facc += flag(u[j], k);
     }
-    uint32_t tile_flags;
-    const uint32_t f_prefix = f_carry + block_exclusive_sum(facc, f_tot, tile_flags);
-    f_carry += tile_flags;
+    const uint32_t fincl = warp_inclusive_sum(facc);
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      f[j] += f_prefix;
-      f_sh[padded(kMicro + j0 + j)] = f[j];
+      f[j] += fincl - facc;
+      f_sh[j][T] = f[j];
+      if (warp == kWarps - 1 && lane >= 32 - kMicroLanes) last_f[p][j][lane - (32 - kMicroLanes)] = f[j];
+    }
+    if (lane == 31) {
+      f_warp[warp] = fincl;
+      if (warp == kWarps - 1) last_f_tot[p] = fincl;
     }
     __syncthreads();
 
-    // 3. the micro-window bias and k_after
+    // 4. the micro-window bias and k_after; the flag sum 96 samples back is
+    //    12 threads back: this warp, the previous warp, or the previous tile
     int out[kItems];
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      int bj = bias[j];
-      if (base + j0 + j + 1 >= kMicro) {
-        const uint32_t w = f[j] - f_sh[padded(j0 + j)];
-        if ((w & 0xFFFFu) * 4 >= kMicro * 3) {
-          bj = min(bj + 1, 1);
-        } else if ((w >> 16) * 5 >= kMicro * 4) {
-          bj = max(bj - 1, -1);
-        }
+      uint32_t w = f[j];
+      if (lane >= kMicroLanes) {
+        w -= f_sh[j][T - kMicroLanes];
+      } else if (warp > 0) {
+        w += f_warp[warp - 1] - f_sh[j][T - kMicroLanes];
+      } else if (t > 0) {
+        w += last_f_tot[p ^ 1] - last_f[p ^ 1][j][lane];
       }
+      const bool on = base + j0 + j + 1 >= kMicro;
+      const bool large = (w & 0xFFFFu) * 4 >= kMicro * 3, zero = (w >> 16) * 5 >= kMicro * 4;
+      const int bj = !on ? bias[j] : large ? min(bias[j] + 1, 1) : zero ? max(bias[j] - 1, -1) : bias[j];
       out[j] = min(max(kb[j] + bj, 0), kMaxK);
     }
-    int4* o = reinterpret_cast<int4*>(dst + base + j0);
+    int4* o = reinterpret_cast<int4*>(dst + base);
     o[0] = make_int4(out[0], out[1], out[2], out[3]);
     o[1] = make_int4(out[4], out[5], out[6], out[7]);
-
-    // 4. keep this tile's last 256 s and 96 flag sums for the next look-back
-    __syncthreads();
-    if (threadIdx.x < kDrift) s_sh[padded(threadIdx.x)] = s_sh[padded(kTile + threadIdx.x)];
-    if (threadIdx.x < kMicro) f_sh[padded(threadIdx.x)] = f_sh[padded(kTile + threadIdx.x)];
-    __syncthreads();
   }
 }
 
@@ -202,9 +249,11 @@ extern "C" int lac_k_after_stateful(const void* codes, long long rows, long long
                                     void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n < kTile || n > 16384 || n % kTile != 0) return (int)cudaErrorInvalidValue;
+  if (n < kTile || n > kMaxTiles * kTile || n % kTile != 0 || rows > 0x7FFFFFFFLL) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (rows <= 0) return 0;
   k_after_kernel<<<(unsigned)rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(codes), static_cast<int32_t*>(k_after), n);
+      static_cast<const uint32_t*>(codes), static_cast<int32_t*>(k_after), (int)(n / kTile));
   return (int)cudaGetLastError();
 }

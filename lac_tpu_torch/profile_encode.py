@@ -16,7 +16,8 @@ prints, beside the card's name and power limit:
   kernels included);
 * device busy: the union of device-activity intervals over the
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
-  device time split into kernel 6, kernels 1-5 and everything else.
+  device time and launch count of each of the six kernels, by the name
+  of its device function, and of everything else.
 """
 
 import argparse
@@ -48,6 +49,24 @@ def gliding_stereo(frames, sample_rate, depth, seed):
     left = np.clip(sig * env * 28000 * scale, -lim, lim - 1).astype(np.int32)
     right = np.clip(np.roll(sig, 7) * env * 26500 * scale, -lim, lim - 1).astype(np.int32)
     return left, right
+
+
+# the six kernels by the names of their device functions (csrc/*.cu; row_scan
+# is one template, told apart by its op type; SplitAddU32 before AddU32)
+_KERNEL_MARKS = (
+    ("k_cost_sums", "k_cost_"),
+    ("split_cumsums_u32", "SplitAddU32"),
+    ("cumsum_u32", "AddU32"),
+    ("prefix_max_i32", "MaxI32"),
+    ("suffix_min_i32", "MinI32"),
+    ("k_after_stateful_fused", "k_after_kernel"),
+)
+KERNEL_NAMES = tuple(name for name, _ in _KERNEL_MARKS)
+
+
+def kernel_of(device_name):
+    """The port's kernel that a device function belongs to, else "other"."""
+    return next((name for name, mark in _KERNEL_MARKS if mark in device_name), "other")
 
 
 def _union_us(intervals):
@@ -128,13 +147,16 @@ def main(argv=None):
     dev = [(max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
            if e.device_type == cuda and e.name not in ranges_of and e.time_range.end > lo and e.time_range.start < hi]
     busy = _union_us(dev) / 1e3
-    device_ms = {"kernel 6": 0.0, "kernels 1-5": 0.0, "other": 0.0}
+    device_ms, count = dict.fromkeys(KERNEL_NAMES + ("other",), 0.0), dict.fromkeys(KERNEL_NAMES + ("other",), 0)
     for e in events:
         if e.device_type == cuda and e.name not in ranges_of:
-            key = ("kernel 6" if "k_after_kernel" in e.name
-                   else "kernels 1-5" if ("row_scan" in e.name or "k_cost_" in e.name) else "other")
+            key = kernel_of(e.name)
             device_ms[key] += (e.time_range.end - e.time_range.start) / 1e3
-    print("device time by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in device_ms.items()))
+            count[key] += 1
+    for key in KERNEL_NAMES:
+        print(f"device time {key}: {device_ms[key]:.4f} ms in {count[key]} launches "
+              f"({device_ms[key] / max(count[key], 1):.4f} ms each)")
+    print(f"device time, everything else: {device_ms['other']:.1f} ms in {count['other']} launches")
     print(f"device busy over the profiled encode: {busy:.1f} / {(hi - lo) / 1e3:.1f} ms = "
           f"{100 * busy / ((hi - lo) / 1e3):.1f}% ({len(dev)} device events; host wall {wall * 1e3:.1f} ms)")
 

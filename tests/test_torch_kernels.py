@@ -159,10 +159,11 @@ def test_break_scans_plain(which, n):
 
 
 def _edge_rows(n):
-    """Rows zero except at the adapter's window edges and the 2048-wide
-    tile edges (or zero only there), as chip_smoke.py's kernel-6 cases."""
-    pos = [p for p in (95, 96, 255, 256) if p < n]
-    pos += [p for k in range(2048, n + 1, 2048) for p in (k - 1, k) if p < n]
+    """Rows zero except at the adapter's window edges, every warp edge
+    (256m - 1, 256m) and the start of every micro window that reaches back
+    over one (256m - 97, 256m - 96), so every 2048-wide tile edge, or zero
+    only there, as chip_smoke.py's kernel-6 cases."""
+    pos = sorted({p for m in range(256, n, 256) for p in (m - 97, m - 96, m - 1, m)} | {95, 96, 255, 256})
     u = np.zeros((4, n), np.uint32)
     u[:3, pos] = np.array([7, 0xFFFFFFFF, 1 << 20], np.uint32)[:, None]
     u[3] = 3
@@ -170,22 +171,112 @@ def _edge_rows(n):
     return u
 
 
+def _near_threshold_rows(n, seed):
+    """Codes that are zero with probability 0.75-0.84, so that the micro
+    window's zero count (threshold 77 of 96) crosses its threshold often."""
+    rng = np.random.RandomState(seed)
+    dens = np.array([0.75, 0.78, 0.81, 0.84])[:, None]
+    return (rng.randint(1, 1 << 16, (4, n)) * (rng.rand(4, n) >= dens)).astype(np.uint32)
+
+
 def _k6_rows(n, seed):
-    """8 rows (the Pallas kernel's row tile): four adversarial patterns
-    and four window/tile-edge rows."""
-    return np.concatenate([_codes(6, n, seed)[[0, 1, 3, 4]], _edge_rows(n)])
+    """16 rows (two of the Pallas kernel's row tiles): the six adversarial
+    patterns, four rows near the micro window's zero threshold (where a
+    look-back one sample off shows) and four window/warp/tile-edge rows."""
+    return np.concatenate([_codes(8, n, seed), _near_threshold_rows(n, seed), _edge_rows(n)])
 
 
-@pytest.mark.parametrize("n", [2048, 16384])
+def _bit_width(x):
+    """bit_width of uint64 values < 2^53 (exact in float64)."""
+    return np.frexp(x.astype(np.float64))[1].astype(np.int64)
+
+
+def _tile_k_base(N, c):
+    """csrc/k_after.cu's k_base: one funnel shift gives M >> k0 for k0 <= 30."""
+    M = np.where(N >= 2 * c, N - c, c)  # the else branch is masked below
+    k0 = np.maximum(_bit_width(M) - _bit_width(c), 0)
+    shifted = M >> np.minimum(k0, 30).astype(np.uint64)
+    assert (shifted[k0 < 31] < (1 << 15)).all()  # so the low word, all the kernel keeps, is all of it
+    q = shifted & np.uint64(0xFFFFFFFF)
+    k = np.where(k0 >= 31, 31, k0 + (q >= c))
+    return np.where(N < 2 * c, 0, k).astype(np.int64)
+
+
+def _tile_drift(N, c, W):
+    """csrc/k_after.cu's drift bias with its 32-bit ranges asserted."""
+    lm = (W + np.uint64(128)) >> np.uint64(8)
+    assert (lm < (1 << 32)).all()
+    t1 = ((np.uint64(3) * lm - np.uint64(1)) >> np.uint64(2)) + np.uint64(1)  # only read where lm >= 1
+    assert (t1[lm >= 1] < (1 << 32)).all()
+    third = (lm * np.uint64(0xAAAAAAAB)) >> np.uint64(33)  # umulhi(lm, 0xAAAAAAAB) >> 1
+    assert ((third + 2) < (1 << 31)).all()
+    up = (lm >= 1) & (N < c * t1)
+    down = N >= c * lm + c * (third + np.uint64(2))
+    return np.where(up, 1, np.where(down, -1, 0))
+
+
+def _tile_flags(u, k):
+    q = np.where(k >= 31, 0, u >> np.minimum(k, 31).astype(np.uint64))
+    return (q > 3).astype(np.uint64) + ((q == 0).astype(np.uint64) << np.uint64(16))
+
+
+def _k_after_by_tiles(u):
+    """numpy model of csrc/k_after.cu: one block walks each row in tiles of
+    2048 samples (8 warps of 256) and computes a tile's k_after from what it
+    holds: the tile's codes, the s carried before the tile, and of the
+    previous tile only its last warp's 256 warp-local sums of u and its last
+    96 warp-local flag sums, with that warp's totals."""
+    rows, n = u.shape
+    u = u.astype(np.uint64)
+    out = np.zeros((rows, n), np.int64)
+    carry = np.zeros(rows, np.uint64)  # s before the tile
+    last = None  # the previous tile's last warp: (s total, s sums, flag total, last 96 flag sums)
+    for base in range(0, n, 2048):
+        ut = u[:, base : base + 2048].reshape(rows, 8, 256)  # warp w holds samples 256w..256w+255
+        swl = np.cumsum(ut, axis=-1, dtype=np.uint64)
+        wtot = swl[..., -1]
+        pre = carry[:, None] + np.cumsum(wtot, -1, dtype=np.uint64) - wtot  # s before each warp
+        c = (base + np.arange(2048, dtype=np.uint64) + 1).reshape(8, 256)
+        N = pre[..., None] + swl + (c >> np.uint64(1))
+        kb = _tile_k_base(N, c)
+        # the warp 256 samples back: the previous warp, or the previous tile's last
+        back_swl = np.zeros_like(swl)
+        back_tot = np.zeros_like(wtot)
+        back_swl[:, 1:], back_tot[:, 1:] = swl[:, :-1], wtot[:, :-1]
+        if last is not None:
+            back_tot[:, 0], back_swl[:, 0] = last[0], last[1]
+        W = back_tot[..., None] + swl - back_swl
+        bias = np.where((c > 256) & (N >= c), _tile_drift(N, c, W), 0)
+        fl = np.cumsum(_tile_flags(ut, kb), axis=-1, dtype=np.uint64)
+        ftot = fl[..., -1]
+        # the flag sum 96 samples back: this warp, the previous warp, or the previous tile
+        w = np.empty_like(fl)
+        w[..., 96:] = fl[..., 96:] - fl[..., :-96]
+        w[:, 1:, :96] = fl[:, 1:, :96] + ftot[:, :-1, None] - fl[:, :-1, 160:]
+        w[:, 0, :96] = fl[:, 0, :96] + (0 if last is None else last[2][:, None] - last[3])
+        large, zero = w & np.uint64(0xFFFF), w >> np.uint64(16)
+        on = c >= 96
+        bias = np.where(on & (large * 4 >= 288), np.minimum(bias + 1, 1),
+                        np.where(on & ~(large * 4 >= 288) & (zero * 5 >= 384), np.maximum(bias - 1, -1), bias))
+        out[:, base : base + 2048] = np.clip(kb + bias, 0, 31).reshape(rows, 2048)
+        carry = carry + wtot.sum(-1)
+        last = (wtot[:, 7], swl[:, 7], ftot[:, 7], fl[:, 7, 160:])
+    return out
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 16384])
 def test_k_after_stateful_fused_plain(n):
     """Kernel 6's plain version against the fused Pallas kernel
-    (interpret mode) and the numpy closed form."""
+    (interpret mode), the numpy closed form, and a numpy model of the CUDA
+    kernel's tile and warp decomposition with its 32-bit range arguments
+    asserted."""
     u = _k6_rows(n, 8)
     assert pa.shape_supported(*u.shape)
     got = K.k_after_stateful_fused(_t(u.view(np.int32)))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref_adapt.k_after_stateful(u.astype(np.uint64), xp=np))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pa.k_after_stateful_fused(u, interpret=True)))
+    np.testing.assert_array_equal(got.numpy(), _k_after_by_tiles(u))
 
 
 def test_k_after_routing_by_shape():
