@@ -173,11 +173,13 @@ def break_indices(codes, rng, reverse):
 
 
 def kernel_cases(rng, dev):
-    """name -> list of (label, operand on ``dev``, timing). Every case is
-    held bit-exact to the plain version; ``timing`` is None or (plan kind,
-    launches per plan of that kind) for a shape at which the main path
+    """name -> list of (label, operand on ``dev``, timing[, call]). Every
+    case is held bit-exact to the plain version; ``timing`` is None or (plan
+    kind, launches per plan of that kind) for a shape at which the main path
     launches the kernel (B = 256 lanes of a full-width plan, 12 x 256 of a
-    probe plan), first the shape whose time the kernel record carries."""
+    probe plan), first the shape whose time the kernel record carries.
+    ``call`` is the (kernel, plain) pair of functions of the operand where
+    the case is not the wrapper with its default arguments."""
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -189,29 +191,47 @@ def kernel_cases(rng, dev):
     odd = adversarial_codes(37, 1001, rng)
     stack_t, winners_t, probes_t, pw_t = up(stack), up(winners), up(probes), up(probe_winners)
     full, probe = ("full", 1), ("probe", 1)
-    kcost = [("(B*11, 16384)", stack_t, full), ("head (B*11, 256 of 16384)", stack_t[:, :256], full),
-             ("probe (12B*11, 256), head = row", probes_t, ("probe", 2))]
-    # partition sweep: the winners cut into 2^p parts, heads of min(256, part) samples
-    for rows0, width, pmax, kind in ((LANES, BLOCK, 8, "full"), (12 * LANES, 256, 3, "probe")):
-        win = winners_t if kind == "full" else pw_t
-        for p in range(1, pmax + 1):
-            part = win.reshape(rows0 << p, width >> p)
-            label = f"{kind} partition p={p} ({rows0 << p}, {width >> p})"
-            if width >> p > 256:
-                kcost += [(label, part, (kind, 1)), (f"{label} head 256", part[:, :256], (kind, 1))]
-            else:
-                kcost.append((f"{label}, head = row", part, (kind, 2)))
-    kcost.append(("odd (37, 1001)", up(odd), None))
+
+    def with_head(head):  # head sums and row sums from one launch
+        return (lambda x: K.k_cost_sums(x, head=head)), (lambda x: K.k_cost_sums_plain(x, head=head))
+
+    def orders(max_p):  # every partition order's sums from one launch
+        return (lambda x: K.k_cost_partition_sums(x, max_p)), (lambda x: K.k_cost_partition_sums_plain(x, max_p))
+
+    # the planner's launches: the candidate stack (head and row sums), then the winners (every order)
+    kcost = [("(B*11, 16384), head 256 + row", stack_t, full, with_head(256)),
+             ("winners (B, 16384), orders 0..8", winners_t, full, orders(8)),
+             ("probe (12B*11, 256), head = row", probes_t, probe, with_head(256)),
+             ("probe winners (12B, 256), orders 0..3", pw_t, probe, orders(3)),
+             # what blocks of other lengths launch, and what the planner no longer does
+             ("(B*11, 16384), row only", stack_t, None),
+             ("strided head view (B*11, 256 of 16384)", stack_t[:, :256], None),
+             ("strided (B*11, 1024 of 16384), head 256", stack_t[:, :1024], None, with_head(256)),
+             ("strided (B*11, 1000 of 16384), head 6", stack_t[:, :1000], None, with_head(6)),
+             ("strided winners (B, 4096 of 16384), orders 0..7", winners_t[:, :4096], None, orders(7)),
+             ("misaligned (B, 4092 of 16384), row only", winners_t[:, 1:4093], None),
+             ("misaligned (B, 512 of 16384), orders 0..4", winners_t[:, 3:515], None, orders(4)),
+             ("parts (2B, 8192), head 256", winners_t.reshape(-1, 8192), None, with_head(256)),
+             ("parts (256B, 64)", winners_t.reshape(-1, 64), None),
+             ("probe parts (96B, 32)", pw_t.reshape(-1, 32), None),
+             ("parts (16B, 1024)", winners_t.reshape(-1, 1024), None),
+             ("(B, 12288 of 16384), orders 0..8 (48-sample segments)", winners_t[:, :12288], None, orders(8)),
+             ("odd (37, 1001)", up(odd), None), ("odd (37, 1001), head 256", up(odd), None, with_head(256)),
+             ("odd (37, 1000), orders 0..3 (125-sample segments)", up(odd[:, :1000]), None, orders(3)),
+             ("(37, 64), orders 0..1", up(odd[:, :64]), None, orders(1))]
     flags = (probes.view(np.uint32) >> 31) + ((probes.view(np.uint32) & 1) << 16)
+    # short rows beside the probe shape: a ragged step (264), the longest short row (2048), the
+    # shortest long row (2052), a row without 128-bit loads (1001)
+    extra = [(f"(37, {n})", adversarial_codes(37, n, rng), None) for n in (264, 2048, 2052)]
+    extra.append(("odd (37, 1001)", odd, None))
     scans = [("(B*11, 16384)", stack, full), ("(B, 16384)", winners, full),
-             ("probe (12B*11, 256)", probes, probe), ("probe (12B, 256)", probe_winners, probe),
-             ("odd (37, 1001)", odd, None)]
+             ("probe (12B*11, 256)", probes, probe), ("probe (12B, 256)", probe_winners, probe)] + extra
+    extra_t = [(lbl, up(a), tm) for lbl, a, tm in extra]
     return {
         "k_cost_sums": kcost,
-        "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe), ("(B*11, 16384)", stack_t, None),
-                              ("odd (37, 1001)", up(odd), None)],
+        "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe), ("(B*11, 16384)", stack_t, None)] + extra_t,
         "cumsum_u32": [("probe flags (12B*11, 256)", up(flags.astype(np.uint32).view(np.int32)), probe),
-                       ("adversarial (B*11, 16384)", stack_t, None), ("odd (37, 1001)", up(odd), None)],
+                       ("adversarial (B*11, 16384)", stack_t, None)] + extra_t,
         "prefix_max_i32": [(lbl, up(break_indices(a, rng, False)), tm) for lbl, a, tm in scans],
         "suffix_min_i32": [(lbl, up(break_indices(a, rng, True)), tm) for lbl, a, tm in scans],
         "k_after_stateful_fused": [(f"({ROWS}, {BLOCK})", up(k_after_codes(ROWS, BLOCK, rng)), full)]
@@ -222,7 +242,7 @@ def kernel_cases(rng, dev):
 
 def as_values(name, out):
     """Kernel output -> int64 values (u32 sums, i32 scans) for the diff."""
-    outs = out if isinstance(out, tuple) else (out,)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
     conv = (lambda t: t.to(torch.int64)) if name.endswith("_i32") else u32_from_bits
     return [conv(t) for t in outs]
 
@@ -231,7 +251,8 @@ def bound(name, x, out):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (input read once, outputs written once) over the memory rate and
     its integer instructions over the peak instruction rate."""
-    outs = out if isinstance(out, tuple) else (out,)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    outs = list({o.data_ptr(): o for o in outs}.values())  # a result returned twice is written once
     nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEMENT[name] * x.numel() / INT32_OPS_PER_S * 1e3
@@ -263,17 +284,17 @@ def check_kernels(rng):
     plain). Returns (the kernel records, name -> list of per-shape times)."""
     records, shapes = {}, {}
     for name, cases in kernel_cases(rng, torch.device("cuda")).items():
-        kern, plain = getattr(K, name), getattr(K, name + "_plain")
         lib = LIBRARY_CALLS.get(name)
         err = 0
         shapes[name] = []
-        for label, x, timing in cases:
+        for label, x, timing, *call in cases:
+            kern, plain = call[0] if call else (getattr(K, name), getattr(K, name + "_plain"))
             got, want = as_values(name, kern(x)), as_values(name, plain(x))
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 err = max(err, int((g - w).abs().max().item()) if g.numel() else 0)
             check(err == 0, f"{name} {label}: kernel differs from its plain version (max |diff| {err})")
-            print(f"  {name:22s} {label:44s} exact")
+            print(f"  {name:22s} {label:56s} exact")
             if timing is None:
                 continue
             t = [time_ms(plain, x), time_ms(kern, x), time_ms(kern, x), time_ms(plain, x)]

@@ -1,0 +1,292 @@
+"""Time kernels 1-5 (csrc/kcost.cu, csrc/row_scan.cu) against other sources of them on one card, in turns.
+
+    python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU]
+
+Run from the repository root, on a machine with a CUDA card and nvcc.
+Each ``OTHER_*`` is another version of that source, for example the
+parent commit's, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists. The script builds this tree's source and the other
+one, each alone into its own shared library with the port's nvcc flags,
+all in parallel, prints every kernel's ptxas report (registers, spill,
+shared memory), holds every timed call bit-exact against the plain
+version, and times in turns (other, this, ..., this, other; a CUDA graph
+of 20 launches between CUDA events, as chip_smoke.py times) beside
+chip_smoke.py's bound, under the card's name and power limit.
+
+``--row-scan``: the four scans at the probe shapes (33792, 256) and
+(3072, 256), at 512, 1024 and 2048 samples a row, and at (2816, 16384);
+this tree's source is also built with ``-DLAC_SCAN_SHORT_MAX=256`` and
+``=1024`` (where the warp-per-row kernel hands over to the tile kernel),
+and ``torch.cumsum`` / ``torch.cummax`` are timed in the same turns.
+
+``--kcost``: this tree's source is also built with its build-time
+choices set otherwise (``KCOST_VARIANTS``); the row sums at the shapes both sources take (an older
+source has no ``head`` argument and no partition entry: it is called
+through its five-argument entry), then one plan's worth of k-cost work
+three ways: the other source's launches (head and row apart, every
+partition order apart, as the planner called an older source), this
+source with one launch per partition order (head and row sums together),
+and this source's two launches (candidate stack; winners, every order
+from one read).
+"""
+
+import argparse
+import ctypes
+import os
+import pathlib
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .ops import _cuda_lib
+from .ops import cuda_kernels as K
+
+LANES, BLOCK = 256, 16384
+# build-time choices of csrc/kcost.cu timed beside its defaults
+KCOST_VARIANTS = (("-DLAC_KCOST_UNROLL=4",), ("-DLAC_KCOST_TREE_BLOCK=1024",))
+CSRC = pathlib.Path(_cuda_lib.__file__).parent.parent / "csrc"
+
+
+def _build(src, out, defines=()):
+    """nvcc ``src`` alone into ``out``; returns one ptxas line per kernel."""
+    nvcc = _cuda_lib._nvcc()
+    proc = subprocess.run([nvcc, *_cuda_lib.NVCC_FLAGS, *defines, "-shared", "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    report, name, spill = [], None, ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            if os.path.exists(filt):
+                name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
+            name = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        elif "spill" in line:
+            spill = line.split("ptxas info    :")[-1].strip()
+        elif "Used" in line and "registers" in line:
+            report.append(f"    {name}: {line.split('ptxas info    :')[-1].strip()}; {spill}")
+    return "\n".join(report)
+
+
+def _bind(lib, name, kinds):
+    fn = getattr(lib, name)
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
+    fn.argtypes = [types[k] for k in kinds] + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def call(x, *args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream, x.device.index)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    return call
+
+
+def _scan_entries(path):
+    """name -> function of a (rows, n) int32 tensor, for one row_scan library."""
+    lib = ctypes.CDLL(str(path))
+
+    def one(entry):
+        fn = _bind(lib, entry, "piip")
+
+        def run(x):
+            out = torch.empty_like(x)
+            fn(x, x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr())
+            return out
+
+        return run
+
+    split = _bind(lib, "lac_split_cumsums_u32", "piipp")
+
+    def run_split(x):
+        hi, lo = torch.empty_like(x), torch.empty_like(x)
+        split(x, x.data_ptr(), x.shape[0], x.shape[1], hi.data_ptr(), lo.data_ptr())
+        return hi, lo
+
+    return {"split_cumsums_u32": run_split, "cumsum_u32": one("lac_cumsum_u32"),
+            "prefix_max_i32": one("lac_prefix_max_i32"), "suffix_min_i32": one("lac_suffix_min_i32")}
+
+
+def _kcost_entries(path):
+    """(sums(x, head=0), partition_sums(x, max_p) or None) for one kcost library."""
+    lib = ctypes.CDLL(str(path))
+    if not hasattr(lib, "lac_k_cost_partition_sums"):  # an older source: row sums only
+        old = _bind(lib, "lac_k_cost_sums", "piiip")
+
+        def sums_old(x, head=0):
+            assert head == 0
+            out = torch.empty((x.shape[0], 17), dtype=torch.int32, device=x.device)
+            old(x, x.data_ptr(), x.shape[0], x.shape[1], max(x.stride(0), x.shape[1]), out.data_ptr())
+            return out
+
+        return sums_old, None
+    new = _bind(lib, "lac_k_cost_sums", "piiiipp")
+    part = _bind(lib, "lac_k_cost_partition_sums", "piiiip")
+
+    def sums(x, head=0):
+        out = torch.empty((x.shape[0], 17), dtype=torch.int32, device=x.device)
+        out_head = torch.empty_like(out) if head else None
+        new(x, x.data_ptr(), x.shape[0], x.shape[1], max(x.stride(0), x.shape[1]), head,
+            out_head.data_ptr() if head else None, out.data_ptr())
+        return (out_head, out) if head else out
+
+    def partition_sums(x, max_p):
+        out = torch.empty((x.shape[0], (2 << max_p) - 1, 17), dtype=torch.int32, device=x.device)
+        part(x, x.data_ptr(), x.shape[0], x.shape[1], max(x.stride(0), x.shape[1]), max_p, out.data_ptr())
+        return out
+
+    return sums, partition_sums
+
+
+def _equal(got, want):
+    got, want = (t if isinstance(t, (tuple, list)) else (t,) for t in (got, want))
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _turns(chip_smoke, label, x, sides, want, bound_ms, extra=""):
+    """Check every side against ``want`` and time them in turns: the sides in order, then reversed."""
+    for name, fn in sides.items():
+        if want is not None:
+            chip_smoke.check(_equal(fn(x), want), f"{label}: {name} differs from the plain version")
+    order = list(sides) + list(reversed(sides))
+    t = {}
+    for name in order:
+        t.setdefault(name, []).append(chip_smoke.time_ms(sides[name], x))
+    txt = "; ".join(f"{name} {a:.4f} / {b:.4f} ms" + (f" ({100 * bound_ms / min(a, b):.0f}%)" if bound_ms else "")
+                    for name, (a, b) in t.items())
+    bound_txt = f"; bound {bound_ms:.4f} ms" if bound_ms else ""
+    print(f"  {label}: {txt}{bound_txt}{extra}")
+    return {name: min(v) for name, v in t.items()}
+
+
+def ab_row_scan(chip_smoke, other, out_dir, rng):
+    builds = {"other": (other, ()), "this": (CSRC / "row_scan.cu", ()),
+              "this, short <= 256": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=256",)),
+              "this, short <= 1024": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=1024",))}
+    libs = {side: out_dir / f"row_scan_{i}.so" for i, side in enumerate(builds)}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        logs = list(ex.map(lambda side: _build(builds[side][0], libs[side], builds[side][1]), builds))
+    for side, log in zip(builds, logs):
+        print(f"row_scan, {side}: {builds[side][0]} {' '.join(builds[side][1])}\n{log}")
+    entries = {side: _scan_entries(lib) for side, lib in libs.items()}
+    library = {"cumsum_u32": lambda x: torch.cumsum(x, -1, dtype=torch.int32),
+               "prefix_max_i32": lambda x: torch.cummax(x, -1).values}
+    shapes = [(12 * LANES * 11, 256), (12 * LANES, 256), (6 * LANES * 11, 512), (3 * LANES * 11, 1024),
+              (3 * LANES * 11 // 2, 2048), (LANES * 11, BLOCK)]
+    for rows, n in shapes:
+        codes = chip_smoke.adversarial_codes(rows, n, rng)
+        for name in entries["this"]:
+            if name.endswith("_i32"):
+                x = torch.from_numpy(chip_smoke.break_indices(codes, rng, name == "suffix_min_i32")).cuda()
+            else:
+                x = torch.from_numpy(codes).cuda()
+            want = getattr(K, name + "_plain")(x)
+            sides = {side: e[name] for side, e in entries.items() if n > 256 or "short" not in side}
+            if name in library:
+                chip_smoke.check(_equal(library[name](x), want), f"{name}: the library call differs")
+                sides["library call"] = library[name]
+            _turns(chip_smoke, f"{name} ({rows}, {n})", x, sides, want, chip_smoke.bound(name, x, want)[0])
+            if name == "cumsum_u32" and n == 256:  # the same launch on zeros: does the time depend on the data?
+                zeros = torch.zeros_like(x)
+                _turns(chip_smoke, f"{name} ({rows}, {n}), all zeros", zeros, sides, zeros,
+                       chip_smoke.bound(name, x, want)[0])
+
+
+def ab_kcost(chip_smoke, other, out_dir, rng):
+    this = CSRC / "kcost.cu"
+    builds = {"other": (other, ()), "this": (this, ())}
+    builds.update({f"this, {' '.join(d)}": (this, d) for d in KCOST_VARIANTS})
+    libs = {side: out_dir / f"kcost_{i}.so" for i, side in enumerate(builds)}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        logs = list(ex.map(lambda side: _build(builds[side][0], libs[side], builds[side][1]), builds))
+    for side, log in zip(builds, logs):
+        print(f"kcost, {side}: {builds[side][0]}\n{log}")
+    entries = {side: _kcost_entries(lib) for side, lib in libs.items()}
+    (o_sums, o_part), (t_sums, t_part) = entries["other"], entries["this"]
+    row_sums = {side: e[0] for side, e in entries.items()}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    stack = up(chip_smoke.adversarial_codes(LANES * 11, BLOCK, rng))
+    probes = up(chip_smoke.adversarial_codes(12 * LANES * 11, 256, rng))
+    winners, probe_winners = stack[:LANES], probes[: 12 * LANES]
+    print("row sums at the shapes both sources take:")
+    for label, x in (("(B*11, 16384)", stack), ("strided head (B*11, 256 of 16384)", stack[:, :256]),
+                     ("probe (12B*11, 256)", probes), ("parts (2B, 8192)", winners.reshape(-1, 8192)),
+                     ("parts (16B, 1024)", winners.reshape(-1, 1024)), ("parts (64B, 256)", winners.reshape(-1, 256)),
+                     ("parts (256B, 64)", winners.reshape(-1, 64)), ("probe parts (96B, 32)", probe_winners.reshape(-1, 32))):
+        want = K.k_cost_sums_plain(x)
+        _turns(chip_smoke, label, x, row_sums, want, chip_smoke.bound("k_cost_sums", x, want)[0])
+
+    print("the k-cost work of one plan (candidate stack, then the winners cut into 2^p parts, p = 1..max_p):")
+    for label, cand, win, max_p in (("full-width plan", stack, winners, 8), ("probe plan", probes, probe_winners, 3)):
+        n = cand.shape[1]
+        head = min(256, n)
+
+        def apart(pair, sums=o_sums):  # head and row apart, every order apart: an older source's launches
+            cand, win = pair
+            out = [sums(cand[:, :head]), sums(cand)]
+            for p in range(1, max_p + 1):
+                part = win.reshape(-1, n >> p)
+                out += [sums(part[:, :head]), sums(part)]
+            return out
+
+        def per_order(pair, sums=t_sums):  # head and row sums together, one launch per order
+            cand, win = pair
+            return [sums(cand, head if head < n else 0)] + [
+                sums(win.reshape(-1, n >> p), head if head < n >> p else 0) for p in range(1, max_p + 1)]
+
+        def one_read(pair):  # this source's two launches
+            cand, win = pair
+            return [t_sums(cand, head if head < n else 0), t_part(win, max_p)]
+
+        def one_read_other(pair):
+            cand, win = pair
+            return [o_sums(cand, head if head < n else 0), o_part(win, max_p)]
+
+        # bit-exact: every order's row sums and heads against the plain version
+        tree = t_part(win, max_p)
+        for p in range(max_p + 1):
+            want = K.k_cost_sums_plain(win.reshape(-1, n >> p)).reshape(win.shape[0], 1 << p, 17)
+            chip_smoke.check(torch.equal(tree[:, (1 << p) - 1 : (2 << p) - 1], want), f"{label}: order {p} differs")
+        for got, x in zip(per_order((cand, win)), [cand] + [win.reshape(-1, n >> p) for p in range(1, max_p + 1)]):
+            want = K.k_cost_sums_plain(x, head) if head < x.shape[1] else K.k_cost_sums_plain(x)
+            chip_smoke.check(_equal(got, want), f"{label}: per-order sums differ at {tuple(x.shape)}")
+        sides = {"other, its launches": one_read_other if o_part else apart,
+                 "this, one launch per order": per_order, "this, two launches": one_read}
+        counts = {"other, its launches": 2 if o_part else 2 + 2 * max_p, "this, one launch per order": 1 + max_p,
+                  "this, two launches": 2}
+        for side, (v_sums, v_part) in entries.items():
+            if side not in ("other", "this"):
+                sides[f"{side}, two launches"] = (lambda pair, a=v_sums, b=v_part:
+                                                  [a(pair[0], head if head < n else 0), b(pair[1], max_p)])
+        _turns(chip_smoke, label, (cand, win), sides, None, 0.0,
+               extra="; launches " + ", ".join(f"{k}: {v}" for k, v in counts.items()))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kcost", type=pathlib.Path, help="the other kcost.cu")
+    ap.add_argument("--row-scan", type=pathlib.Path, help="the other row_scan.cu")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA card")
+    import chip_smoke  # the repository root's kernel inputs, timing and bound
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    out_dir = _cuda_lib.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(20261016)
+    if args.row_scan:
+        ab_row_scan(chip_smoke, args.row_scan.resolve(), out_dir, rng)
+    if args.kcost:
+        ab_kcost(chip_smoke, args.kcost.resolve(), out_dir, rng)
+
+
+if __name__ == "__main__":
+    main()

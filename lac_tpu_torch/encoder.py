@@ -30,7 +30,7 @@ from .format.partitions import max_partition_order_for_block
 from .format.zigzag import zigzag_encode
 from .ops import adapt, lpc, predictors, runs
 from .ops._backend import shift_right, u32_from_bits
-from .ops.cuda_kernels import k_cost_sums
+from .ops.cuda_kernels import k_cost_partition_sums, k_cost_sums
 from .ops.stereo import estimate_stereo_mode_host, ms_transform_host
 from .runtime import native
 from .utils.debug import debug_log
@@ -80,22 +80,30 @@ def _mode_cost_fields(v, u, k_used, run_len, long_run, run_start):
     return rice_per, bin_per, zr_per
 
 
-def _k_costs_stack(u32, k_max, width=None):
-    """Rice-cost sums for k in [0, k_max] over the first ``width``
-    samples of each row of ``u32`` (..., n): (..., k_max+1) int64.
+def _k_costs_from_sums(sums, k_max, width):
+    """Rice-cost stack for k in [0, k_max] of rows of ``width`` samples
+    from their 17 k-cost sums (..., 17): (..., k_max + 1) int64.
 
     ``u >> k = ((u >> 16) << (16 - k)) + ((u & 0xFFFF) >> k)`` for k <= 16,
-    so the 17 row sums of the k-cost kernel give every cost.
+    so the 17 sums of the k-cost kernel give every cost.
     """
     assert k_max <= 16
-    lead = u32.shape[:-1]
-    rows = u32.reshape(-1, u32.shape[-1])
-    if width is not None:
-        rows = rows[:, :width]
-    sums = u32_from_bits(k_cost_sums(rows)).reshape(lead + (17,))
-    karr = torch.arange(k_max + 1, dtype=torch.int64, device=u32.device)
+    sums = u32_from_bits(sums)
+    karr = torch.arange(k_max + 1, dtype=torch.int64, device=sums.device)
     shi, slo = sums[..., :1], sums[..., 1 : k_max + 2]
-    return (shi << (16 - karr)) + slo + (karr + 1) * rows.shape[1]
+    return (shi << (16 - karr)) + slo + (karr + 1) * width
+
+
+def _head_and_row_costs(u32):
+    """Initial-k costs over the first INITIAL_SCAN_COUNT samples and
+    static-k costs over the whole of each row of ``u32`` (..., n), from
+    one pass of the k-cost kernel: (..., INITIAL_MAX_K + 1) and
+    (..., MAX_STATIC_K + 1) int64."""
+    lead, n = u32.shape[:-1], u32.shape[-1]
+    head = min(C.INITIAL_SCAN_COUNT, n)
+    head_sums, row_sums = k_cost_sums(u32.reshape(-1, n), head=head)
+    return (_k_costs_from_sums(head_sums.reshape(lead + (17,)), C.INITIAL_MAX_K, head),
+            _k_costs_from_sums(row_sums.reshape(lead + (17,)), C.MAX_STATIC_K, n))
 
 
 @functools.lru_cache(maxsize=64)
@@ -150,7 +158,7 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     # ---- whole-block stateful scoring per candidate
     u = zigzag_encode(residuals)
     u32 = u.to(torch.int32)  # bit view for the kernels
-    head_costs = _k_costs_stack(u32, C.INITIAL_MAX_K, width=min(C.INITIAL_SCAN_COUNT, n))
+    head_costs, static_costs = _head_and_row_costs(u32)
     initial_k = torch.argmin(head_costs, dim=-1).to(torch.int32)
 
     k_used = adapt.k_used_from_after(adapt.k_after_stateful(u32), initial_k)
@@ -164,7 +172,6 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     has_run = run_start.any(dim=-1)
     del rice_per, bin_per, zr_per, run_start
 
-    static_costs = _k_costs_stack(u32, C.MAX_STATIC_K)
     static_bits = static_costs.min(dim=-1).values
     static_k = torch.argmin(static_costs, dim=-1).to(torch.int32)
 
@@ -219,6 +226,14 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
         csz_hi = torch.cat([zero1, torch.cumsum(u_w >> 16, dim=-1)], dim=-1)  # (B, n+1)
         csz_lo = torch.cat([zero1, torch.cumsum(u_w & 0xFFFF, dim=-1)], dim=-1)
         karr = torch.arange(C.MAX_STATIC_K + 1, dtype=torch.int64, device=dev)
+    # a power-of-two block: every order's parts are equal, and one pass of
+    # the k-cost kernel gives every order's sums. The first
+    # INITIAL_SCAN_COUNT samples of a longer part are one part of the
+    # order whose parts have that length.
+    all_orders = n & (n - 1) == 0 and max_p > 0
+    if all_orders:
+        part_sums = k_cost_partition_sums(u_w32, max_p)
+        head_order = max(n // C.INITIAL_SCAN_COUNT, 1).bit_length() - 1
     if any(n % (1 << p) for p in range(1, max_p + 1)):
         # per-k shifted-low cost cumsums (B, n+1, 16): odd block sizes
         # only (unequal partitions); power-of-two blocks never build it
@@ -244,9 +259,13 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
             return _repeat_cols(a, g["sizes"], n)
 
         equal = n % nparts == 0
-        if equal:
-            u3 = u_w32.reshape(B, nparts, base)
-            hc = _k_costs_stack(u3, C.INITIAL_MAX_K, width=min(C.INITIAL_SCAN_COUNT, base))
+        if all_orders:
+            row_sums = part_sums[p]
+            head_sums = part_sums[head_order][:, :: 1 << (head_order - p)] if p < head_order else row_sums
+            hc = _k_costs_from_sums(head_sums, C.INITIAL_MAX_K, min(C.INITIAL_SCAN_COUNT, base))
+            sc = _k_costs_from_sums(row_sums, C.MAX_STATIC_K, base)
+        elif equal:
+            hc, sc = _head_and_row_costs(u_w32.reshape(B, nparts, base))
         else:
             hc = _k_cost_seg(g["starts"], g["head_ends"], g["head_sizes"], C.INITIAL_MAX_K)
         init_k_seg = torch.argmin(hc, dim=-1).to(torch.int32)  # (B, nparts)
@@ -264,7 +283,6 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
             bin_s = bin_pp.reshape(B, nparts, base).sum(dim=-1)
             zr_s = zr_pp.reshape(B, nparts, base).sum(dim=-1)
             has_run_s = start_p.reshape(B, nparts, base).any(dim=-1)
-            sc = _k_costs_stack(u3, C.MAX_STATIC_K)
         else:
             stacked = torch.stack([rice_pp, bin_pp, zr_pp, start_p.to(torch.int64)], dim=-1)
             cs = torch.cat([torch.zeros((B, 1, 4), dtype=torch.int64, device=dev),

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 # C entry -> its leading argument kinds ("p" pointer, "i" long long); every
 # entry then takes (stream, device index) and returns a cudaError_t
 _ENTRIES = {
-    "lac_k_cost_sums": ("p", "i", "i", "i", "p"),
+    "lac_k_cost_sums": ("p", "i", "i", "i", "i", "p", "p"),
+    "lac_k_cost_partition_sums": ("p", "i", "i", "i", "i", "p"),
     "lac_split_cumsums_u32": ("p", "i", "i", "p", "p"),
     "lac_cumsum_u32": ("p", "i", "i", "p"),
     "lac_prefix_max_i32": ("p", "i", "i", "p"),

@@ -62,27 +62,66 @@ def _wrap_u32(x):
 # csrc/kcost.cu; replaces pallas_kernels.k_cost_sums (pallas_kernels.py:81)
 
 
-def k_cost_sums_plain(u32_rows):
-    u = u32_from_bits(u32_rows)
-    lo = u & 0xFFFF
-    cols = [(u >> 16).sum(dim=-1)] + [(lo >> k).sum(dim=-1) for k in range(16)]
-    return _wrap_u32(torch.stack(cols, dim=-1))
+def k_cost_sums_plain(u32_rows, head=None):
+    def sums(rows):
+        u = u32_from_bits(rows)
+        lo = u & 0xFFFF
+        cols = [(u >> 16).sum(dim=-1)] + [(lo >> k).sum(dim=-1) for k in range(16)]
+        return _wrap_u32(torch.stack(cols, dim=-1))
+
+    if head is None:
+        return sums(u32_rows)
+    return sums(u32_rows[:, :head]), sums(u32_rows)
 
 
-def k_cost_sums(u32_rows):
+def k_cost_sums(u32_rows, head=None):
     """(rows, n) u32 codes -> (rows, 17): [sum(u >> 16), sum((u & 0xFFFF) >> k), k = 0..15].
 
-    Rows may be a strided view (``stride(1) == 1``): the head window
-    ``u[:, :256]`` of a block stack is reduced in place.
+    With ``head`` (a sample count >= 1) the result is the pair (sums of
+    each row's first ``head`` samples, sums of the whole rows), both from
+    one read of the rows: one launch. Rows may be a strided view
+    (``stride(1) == 1``).
     """
+    if head is not None and head < 1:
+        raise ValueError(f"k_cost_sums: head must be at least 1, got {head}")
     if _on_cpu(u32_rows, "k_cost_sums", contiguous=False):
-        return k_cost_sums_plain(u32_rows)
+        return k_cost_sums_plain(u32_rows, head)
     rows, n = u32_rows.shape
+    if head is not None and head >= n:  # the head is the row
+        sums = k_cost_sums(u32_rows)
+        return sums, sums
     out = torch.empty((rows, 17), dtype=torch.int32, device=u32_rows.device)
-    _launch("lac_k_cost_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n),
-            out.data_ptr())
+    out_head = torch.empty_like(out) if head else None
+    _launch("lac_k_cost_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n), head or 0,
+            out_head.data_ptr() if head else None, out.data_ptr())
     launches["k_cost_sums"] += 1
-    return out
+    return (out_head, out) if head else out
+
+
+def k_cost_partition_sums_plain(u32_rows, max_p):
+    rows, n = u32_rows.shape
+    return [k_cost_sums_plain(u32_rows.reshape(rows << p, n >> p)).reshape(rows, 1 << p, 17)
+            for p in range(max_p + 1)]
+
+
+def k_cost_partition_sums(u32_rows, max_p):
+    """(rows, n) u32 codes -> for every partition order p = 0..max_p the
+    k-cost sums of each row's 2^p equal parts, a list of (rows, 2^p, 17),
+    from one read of the rows: one launch of kernel 1's second entry
+    (views into one output). ``n`` must be a multiple of ``2^max_p``,
+    ``max_p <= 8``."""
+    on_cpu = _on_cpu(u32_rows, "k_cost_partition_sums", contiguous=False)
+    rows, n = u32_rows.shape
+    if not 0 <= max_p <= 8 or n == 0 or n % (1 << max_p):
+        raise ValueError(f"k_cost_partition_sums: want 0 <= max_p <= 8 and n a positive multiple of 2^max_p, "
+                         f"got max_p={max_p}, shape {tuple(u32_rows.shape)}")
+    if on_cpu:
+        return k_cost_partition_sums_plain(u32_rows, max_p)
+    out = torch.empty((rows, (2 << max_p) - 1, 17), dtype=torch.int32, device=u32_rows.device)
+    _launch("lac_k_cost_partition_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n),
+            max_p, out.data_ptr())
+    launches["k_cost_sums"] += 1
+    return [out[:, (1 << p) - 1 : (2 << p) - 1] for p in range(max_p + 1)]
 
 
 # ---------------------------------------------------------------- kernels 2-5

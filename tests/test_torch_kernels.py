@@ -279,6 +279,276 @@ def test_k_after_stateful_fused_plain(n):
     np.testing.assert_array_equal(got.numpy(), _k_after_by_tiles(u))
 
 
+# ---- numpy models of the redesigned short-row scan and k-cost kernels
+# (csrc/row_scan.cu: row_scan_warp; csrc/kcost.cu: halve, warp_totals,
+# k_cost_block_per_row, k_cost_tree). Each repeats the kernel's own
+# decomposition, lane by lane, and is held against the plain version.
+
+_SCAN_OPS = {  # name -> (combine, identity, dtype, the wrapper's direction is reverse)
+    "split_cumsums_u32": (np.add, 0, np.uint32, False),
+    "cumsum_u32": (np.add, 0, np.uint32, False),
+    "prefix_max_i32": (np.maximum, np.iinfo(np.int32).min, np.int32, False),
+    "suffix_min_i32": (np.minimum, np.iinfo(np.int32).max, np.int32, True),
+}
+
+
+def _warp_scan_model(x, combine, identity, reverse):
+    """row_scan_warp on (rows, n): one warp per row walks 256-element steps;
+    a lane holds scan positions p0..p0+7 (position p is element p, or
+    n - 1 - p in reverse), as two 4-word vectors where n % 4 == 0 (words
+    reversed in registers in the reverse direction) and element by element
+    otherwise; serial scan, five shuffle-up steps over the lane totals, the
+    exclusive prefix and the row's carry added, the carry taken from lane 31."""
+    rows, n = x.shape
+    out = np.zeros_like(x)
+    written = np.zeros(n, np.int64)
+    carry = np.full(rows, identity, x.dtype)
+    lanes = np.arange(32)
+    vec = n % 4 == 0
+    with np.errstate(over="ignore"):
+        for base in range(0, n, 256):
+            v = np.full((rows, 32, 8), identity, x.dtype)
+            elem = np.full((32, 8), -1, np.int64)  # which element each slot holds
+            for lane in lanes:
+                p0 = base + lane * 8
+                for h in (0, 4):
+                    if vec:
+                        if p0 + h < n:
+                            e = n - 4 - (p0 + h) if reverse else p0 + h
+                            assert e >= 0 and e % 4 == 0 and e + 4 <= n  # an aligned vector inside the row
+                            words = np.arange(e, e + 4)
+                            elem[lane, h : h + 4] = words[::-1] if reverse else words
+                    else:
+                        for j in range(h, h + 4):
+                            if p0 + j < n:
+                                elem[lane, j] = n - 1 - (p0 + j) if reverse else p0 + j
+            live = elem >= 0
+            v[:, live] = x[:, elem[live]]
+            for j in range(1, 8):
+                v[..., j] = combine(v[..., j - 1], v[..., j])
+            incl = v[..., 7].copy()
+            for d in (1, 2, 4, 8, 16):
+                y = np.roll(incl, d, axis=1)  # shfl_up: lanes < d read their own value and ignore it
+                incl = np.where(lanes >= d, combine(y, incl), incl)
+            excl = np.roll(incl, 1, axis=1)
+            prefix = np.where(lanes > 0, combine(carry[:, None], excl), carry[:, None])
+            carry = combine(carry, incl[:, 31])
+            v = combine(prefix[..., None], v)
+            out[:, elem[live]] = v[:, live]
+            written[elem[live]] += 1
+    assert (written == 1).all()  # every element stored exactly once
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n", [256, 264, 1001, 2048])
+@pytest.mark.parametrize("name", sorted(_SCAN_OPS))
+def test_warp_scan_decomposition(name, n, reverse):
+    """The warp-per-row scan's decomposition, for every op in both
+    directions, against numpy, the plain version (in the wrapper's own
+    direction) and the Pallas kernel (interpret mode, where it tiles)."""
+    combine, identity, dtype, wrapper_reverse = _SCAN_OPS[name]
+    u = _codes(ROWS, n, 11)
+    x = u if dtype == np.uint32 else _breaks(u, reverse, 12)
+    halves = [x >> 16, x & 0xFFFF] if name == "split_cumsums_u32" else [x]
+    got = [_warp_scan_model(h, combine, identity, reverse) for h in halves]
+    flip = (lambda a: np.flip(a, -1)) if reverse else (lambda a: a)
+    for g, h in zip(got, halves):
+        np.testing.assert_array_equal(g, flip(combine.accumulate(flip(h), axis=-1, dtype=dtype)))
+    if reverse != wrapper_reverse:
+        return
+    plain = getattr(K, name)(_t(x.view(np.int32)))
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    for g, w in zip(got, plain):
+        np.testing.assert_array_equal(g.view(np.int32), w.numpy())
+    if n % 128 == 0:
+        kernel, outs, scratch = {"split_cumsums_u32": (pk._split_cumsum_kernel, 2, 2),
+                                 "cumsum_u32": (pk._cumsum_kernel, 1, 1),
+                                 "prefix_max_i32": (pk._prefix_max_kernel, 1, 1),
+                                 "suffix_min_i32": (pk._suffix_min_kernel, 1, 1)}[name]
+        want = _scan_call(kernel, n, outs=outs, scratch=scratch, reverse=reverse)(_i32(x.view(np.uint32)))
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for w, pw in zip(plain, want):
+            np.testing.assert_array_equal(w.numpy(), np.asarray(pw))
+
+
+def _halve(v, m, off):
+    """kcost.cu's halve<m> over the lanes of the second-last axis: of m live
+    sums the lane with bit ``off`` clear keeps the first ceil(m / 2), its
+    partner (lane ^ off) the rest, zero-padded; each adds the other's copy."""
+    h = (m + 1) // 2
+    v = v.copy()
+    if m & 1:
+        v[..., m] = 0
+    lanes = np.arange(v.shape[-2])
+    upper = ((lanes & off) != 0)[:, None]
+    keep = np.where(upper, v[..., h : 2 * h], v[..., :h])
+    give = np.where(upper, v[..., :h], v[..., h : 2 * h])
+    v[..., :h] = keep + give[..., lanes ^ off, :]
+    return v
+
+
+def _warp_totals(v):
+    """kcost.cu's warp_totals on (..., 32, 18): the 17 totals over the 32 lanes."""
+    for m, off in ((17, 16), (9, 8), (5, 4), (3, 2), (2, 1)):
+        v = _halve(v, m, off)
+    out = np.zeros(v.shape[:-2] + (17,), np.uint32)
+    seen = []
+    for lane in range(32):
+        j3 = (2 if lane & 2 else 0) + (lane & 1)
+        j2 = (3 if lane & 4 else 0) + j3
+        j1 = (5 if lane & 8 else 0) + j2
+        k = (9 if lane & 16 else 0) + j1
+        if j3 < 3 and j2 < 5 and j1 < 9 and k < 17:
+            out[..., k] = v[..., lane, 0]
+            seen.append(k)
+    assert sorted(seen) == list(range(17))  # every sum leaves through exactly one lane
+    return out
+
+
+def _group_totals(v):
+    """k_cost_tree's reduction on (..., 8, 18): the 17 totals over a group of
+    8 lanes, three values left in each lane."""
+    for m, off in ((17, 4), (9, 2), (5, 1)):
+        v = _halve(v, m, off)
+    out = np.zeros(v.shape[:-2] + (17,), np.uint32)
+    seen = []
+    for lane in range(8):
+        for j in range(3):
+            j2 = (3 if lane & 1 else 0) + j
+            j1 = (5 if lane & 2 else 0) + j2
+            k = (9 if lane & 4 else 0) + j1
+            if j2 < 5 and j1 < 9 and k < 17:
+                out[..., k] = v[..., lane, j]
+                seen.append(k)
+    assert sorted(seen) == list(range(17))
+    return out
+
+
+def _lane_partials(u, lo, hi, stride, vec):
+    """accumulate_span: elements lo..hi of each row shared among ``stride``
+    threads (whole 4-word vectors first where ``vec``, then single words):
+    (rows, stride, 18) partial sums, slot 17 unused."""
+    rows = u.shape[0]
+    acc = np.zeros((rows, stride, 18), np.uint32)
+    owner = np.empty(hi - lo, np.int64)
+    nv = (hi - lo) // 4 if vec else 0
+    owner[: 4 * nv] = np.repeat(np.arange(nv) % stride, 4)
+    owner[4 * nv :] = np.arange(hi - lo - 4 * nv) % stride
+    for t in range(stride):
+        mine = u[:, lo:hi][:, owner == t]
+        acc[:, t, :17] = _numpy_kcost(mine)
+    return acc
+
+
+def _block_per_row_model(u, head):
+    """k_cost_block_per_row: 256 threads add the head's samples, copy their
+    accumulators for the head sums, go on over the rest of the row; each
+    warp's totals meet in shared memory."""
+    vec = head % 4 == 0 and u.shape[1] % 4 == 0  # 16-byte aligned rows and head
+    acc = _lane_partials(u, 0, head, 256, vec)
+    head_sums = _warp_totals(acc.reshape(-1, 8, 32, 18)).sum(axis=1, dtype=np.uint32)
+    acc = acc + _lane_partials(u, head, u.shape[1], 256, vec)
+    return head_sums, _warp_totals(acc.reshape(-1, 8, 32, 18)).sum(axis=1, dtype=np.uint32)
+
+
+def _tree_model(u, levels, block=256):
+    """k_cost_tree: groups of 8 lanes reduce the finest order's segments into a
+    block's shared memory, laid out as the output (order p at entries
+    2^p - 1 .. 2^(p+1) - 2 of its row); the orders are folded pairwise there;
+    a block takes 32 / 2^levels rows where a row has fewer segments than the
+    block has groups."""
+    rows, n = u.shape
+    nparts, seg, groups = 1 << levels, n >> levels, block // 8
+    entries = 2 * nparts - 1
+    block_rows = 1 if nparts >= groups else groups // nparts
+    out = np.zeros((rows, entries, 17), np.uint32)
+    for row0 in range(0, rows, block_rows):
+        sums = np.zeros((block_rows, entries, 17), np.uint32)
+        assert (block_rows * nparts) % groups == 0  # every group makes the same number of turns
+        for sg in range(block_rows * nparts):
+            r, s = sg >> levels, sg & (nparts - 1)
+            acc = np.zeros((1, 8, 18), np.uint32)
+            if row0 + r < rows:
+                acc = _lane_partials(u[row0 + r : row0 + r + 1, s * seg : (s + 1) * seg], 0, seg, 8, seg % 4 == 0)
+            sums[r, nparts - 1 + s] = _group_totals(acc)[0]
+        for p in range(levels - 1, -1, -1):
+            np_ = 1 << p
+            for r in range(block_rows):
+                for j in range(np_):
+                    sums[r, np_ - 1 + j] = sums[r, 2 * np_ - 1 + 2 * j] + sums[r, 2 * np_ - 1 + 2 * j + 1]
+        live = min(block_rows, rows - row0)
+        out[row0 : row0 + live] = sums[:live]
+    return [out[:, (1 << p) - 1 : (2 << p) - 1] for p in range(levels + 1)]
+
+
+def _pallas_kcost(u):
+    call = pl.pallas_call(
+        pk._kernel,
+        out_shape=jax.ShapeDtypeStruct((u.shape[0], 128), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )
+    return np.asarray(call(_i32(np.ascontiguousarray(u))))[:, :17].view(np.uint32)
+
+
+@pytest.mark.parametrize("n,head", [(16384, 256), (4096, 256), (2048, 128), (1001, 256), (500, 256), (300, 7),
+                                    (256, 256), (64, 256)])
+def test_k_cost_head_and_row_pass(n, head):
+    """Head sums and row sums from one pass: the wrapper's ``head``
+    argument and the block-per-row kernel's decomposition against numpy and,
+    where it tiles, the Pallas kernel on the head window and on the row."""
+    u = _codes(ROWS, n, 13)
+    h = min(head, n)
+    got_head, got_row = (t.numpy().view(np.uint32) for t in K.k_cost_sums(_t(u.view(np.int32)), head=head))
+    np.testing.assert_array_equal(got_head, _numpy_kcost(u[:, :h]))
+    np.testing.assert_array_equal(got_row, _numpy_kcost(u))
+    np.testing.assert_array_equal(got_row, K.k_cost_sums(_t(u.view(np.int32))).numpy().view(np.uint32))
+    model_head, model_row = _block_per_row_model(u, h)
+    np.testing.assert_array_equal(model_head, got_head)
+    np.testing.assert_array_equal(model_row, got_row)
+    if n % 128 == 0 and h % 128 == 0:
+        np.testing.assert_array_equal(got_head, _pallas_kcost(u[:, :h]))
+        np.testing.assert_array_equal(got_row, _pallas_kcost(u))
+
+
+@pytest.mark.parametrize("rows,n,levels", [(5, 16384, 8), (8, 4096, 7), (37, 256, 3), (37, 64, 1), (3, 12288, 8),
+                                           (16, 1000, 3), (37, 1001, 0), (70, 256, 0), (9, 2048, 6), (6, 8192, 5)])
+def test_k_cost_partition_sums(rows, n, levels):
+    """Every partition order from one read: the plain version against numpy
+    and the Pallas kernel (on the orders whose parts it tiles), the segment
+    tree's decomposition against the plain version, and the heads of
+    min(256, n >> p) samples as the planner slices them from the order
+    whose parts are 256 long."""
+    u = _codes(rows, n, 14)
+    plain = K.k_cost_partition_sums(_t(u.view(np.int32)), levels)
+    assert [tuple(t.shape) for t in plain] == [(rows, 1 << p, 17) for p in range(levels + 1)]
+    model = _tree_model(u, levels, block=512 if levels >= 6 else 256)
+    for p in range(levels + 1):
+        parts = u.reshape(rows << p, n >> p)
+        got = plain[p].numpy().view(np.uint32)
+        np.testing.assert_array_equal(got.reshape(-1, 17), _numpy_kcost(parts))
+        np.testing.assert_array_equal(model[p], got)
+        if (n >> p) % 128 == 0:
+            np.testing.assert_array_equal(got.reshape(-1, 17), _pallas_kcost(parts))
+    if n & (n - 1) == 0:
+        head_order = max(n // 256, 1).bit_length() - 1
+        for p in range(1, levels + 1):
+            heads = plain[head_order][:, :: 1 << (head_order - p)] if p < head_order else plain[p]
+            want = _numpy_kcost(u.reshape(rows << p, n >> p)[:, :256])
+            np.testing.assert_array_equal(heads.numpy().view(np.uint32).reshape(-1, 17), want)
+
+
+def test_k_cost_partition_sums_rejects_unequal_parts():
+    with pytest.raises(ValueError):
+        K.k_cost_partition_sums(torch.zeros((4, 1000), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        K.k_cost_partition_sums(torch.zeros((4, 1024), dtype=torch.int32), 9)
+    with pytest.raises(ValueError):
+        K.k_cost_sums(torch.zeros((4, 1024), dtype=torch.int32), head=0)
+
+
 def test_k_after_routing_by_shape():
     """Full-width rows are what the kernel takes; probe and odd rows keep
     the split chain (kernels 2 and 3 on the card)."""

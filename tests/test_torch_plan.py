@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from lac_tpu import encoder as ref_enc  # noqa: E402
 from lac_tpu.ops import lpc as ref_lpc  # noqa: E402
+from lac_tpu_torch import encoder as port_enc  # noqa: E402
 from lac_tpu_torch.encoder import plan_group, plan_inputs_to_torch  # noqa: E402
 
 
@@ -76,5 +77,39 @@ def test_ties_take_the_first_candidate():
     pcm[12:] = _pcm(12, 256, 3)
     port, jit, ref_np = _plans(pcm, True, True)
     assert (port[:12, 0] == 0).all()
+    np.testing.assert_array_equal(port, jit)
+    np.testing.assert_array_equal(port, ref_np)
+
+
+@pytest.mark.parametrize("n,stack_calls,order_calls", [
+    (64, 1, 1),  # one partition order, every part shorter than the 256-sample head
+    (256, 1, 1),  # probe lanes: the head is the row, orders 1..3 from one read
+    (4096, 1, 1),  # power of two: heads of orders 1..3 are parts of order 4
+    (12288, 9, 0),  # equal parts at every order but no power of two: one head-and-row call per order
+    (1000, 4, 0),  # equal parts at orders 1..3, unequal at 4: the cumsum route
+    (3000, 4, 0),  # 375-sample parts at order 3, unequal from order 4 on
+])
+def test_k_cost_call_sites(monkeypatch, n, stack_calls, order_calls):
+    """The planner's k-cost calls by block length: head and row sums of
+    the candidate stack from one call, every partition order of a
+    power-of-two block from one more; other lengths take one call per equal
+    order and the cumsum route for unequal ones. The meta equals lac_tpu's
+    on every route."""
+    calls = {"k_cost_sums": 0, "k_cost_partition_sums": 0}
+
+    def counted(name):
+        fn = getattr(port_enc, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(port_enc, name, counted(name))
+    port, jit, ref_np = _plans(_pcm(7, n, 4), True, True)
+    assert calls == {"k_cost_sums": stack_calls, "k_cost_partition_sums": order_calls}
+    assert port[:, 1].max() > 0, "want a lane that accepts a partitioning"
     np.testing.assert_array_equal(port, jit)
     np.testing.assert_array_equal(port, ref_np)
