@@ -21,10 +21,33 @@
    bound) per file is printed), and holds the bytes to the port's host
    route (the native planner, plane pipeline off); runs the port's CLI
    encode and decode on both and holds the decoded PCM to the input;
+   then a mono, a forced-ms, a forced-lr, a filtered-noise and a 30 s
+   (chunk width 64) file the same way;
 5. encodes the 16 golden signals (tests/signals.py) through the port's
    CLI on the card and holds them byte-for-byte to tests/golden/*.lac,
    and decodes every golden with the port's decoder, PCM-exact;
-6. checks that neither jax nor any lac_tpu module was imported.
+6. the many-file path at real size: 84 stereo 44.1 kHz 16-bit clips
+   (5-35 s and a few shorter; more than ``pool._MAX_WAVE_BLOCKS`` full
+   blocks, so two waves) through ``pool.encode_pooled``, file by file
+   through ``FrameEncoder.encode`` and through
+   ``batch.encode_batch(max_workers=4)``: every frame equal to the port's
+   host route and PCM-exact on decode; launches and plan batches of the
+   pooled run accounted for by the timed shapes; the threaded run's
+   launch counts equal to the file-by-file run's; warm wall, frames/s
+   and peak device memory of each; a mono batch, a 96 kHz 24-bit batch
+   and a wave of under 8 blocks; a fresh process whose first call is a
+   threaded ``encode_batch`` that builds both libraries;
+7. the long-file path: a 2100-block WAV through the CLI's streaming route
+   (in this process for the launch counts, then ``python -m
+   lac_tpu_torch.cli encode`` in a fresh process), bytes equal to the
+   in-memory ``FrameEncoder.encode``, CLI decode PCM-exact; wall, frames/s
+   and the child's peak RSS beside the in-memory route
+   (``LAC_TPU_STREAM_BLOCKS=0``);
+8. the cold CLI: a golden-size WAV through ``python -m lac_tpu_torch.cli
+   encode`` in a fresh process starts no CUDA context (wall and peak RSS
+   beside the same call with the context started first); an input of 8
+   full blocks starts one;
+9. checks that neither jax nor any lac_tpu module was imported.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -45,7 +68,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lac_tpu_torch import cli, device_pipeline
+from lac_tpu_torch import cli, device_pipeline, pool, stream
+from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import FrameDecoder
 from lac_tpu_torch.encoder import FrameEncoder
 from lac_tpu_torch.io import write_wav as write_wav_port
@@ -53,7 +77,7 @@ from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.ops._backend import u32_from_bits
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
-from lac_tpu_torch.profile_encode import gliding_stereo
+from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo
 from lac_tpu_torch.runtime import native
 from tests.signals import cases as golden_cases
 
@@ -402,6 +426,364 @@ def count_plan_batches():
     return calls
 
 
+class Counted:
+    """Kernel launches and plan batches of a stretch of the run: the launch
+    counts are set to 0 on entry and read on exit (``launches``), the plan
+    batches of the stretch by kind (``plans``)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __enter__(self):
+        K.reset_launches()
+        self.before = dict(self.batches)
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = dict(K.launches)
+        self.plans = {kind: self.batches.get(width, 0) - self.before.get(width, 0)
+                      for kind, width in (("full", BLOCK), ("probe", 256))}
+
+
+def check_accounting(label, shapes, plans, counts):
+    """The timed shapes are every shape the path launches: with the plan
+    batches of a stretch they account for every counted launch. Returns
+    the model (name -> launches, ms, ms over the bound)."""
+    model = per_encode(shapes, plans)
+    check(all(model[k][0] == counts[k] for k in counts),
+          f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
+    check(counts["k_after_stateful_fused"] == plans["full"] and
+          counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"],
+          f"{label}: kernel 6 runs once per full-width plan, kernels 2 and 3 once per probe plan: {counts}, {plans}")
+    return model
+
+
+def timed_on_card(fn):
+    """(result, wall s, peak device bytes) of ``fn()``, the card idle before and after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+PAGE_KB = os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def run_child(args, env=None, limit_s=300):
+    """``python3 <args>`` from the checkout in a fresh process, killed after
+    ``limit_s``. Returns (exit code, output, wall s, peak RSS in MiB). The
+    peak is the largest resident size seen in /proc/<pid>/statm, read every
+    20 ms while the child runs: ``ru_maxrss`` would not do, a child starts
+    with its parent's peak, and this process holds gigabytes."""
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith("LAC_TPU_STREAM")}
+    child_env.update(env or {})
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *args], cwd=REPO, env=child_env, stdout=out, stderr=subprocess.STDOUT)
+        peak_kb = 0
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > limit_s:
+                    proc.kill()
+                try:
+                    with open(f"/proc/{proc.pid}/statm") as f:
+                        peak_kb = max(peak_kb, int(f.read().split()[1]) * PAGE_KB)
+                except (OSError, IndexError, ValueError):  # the child has just gone
+                    pass
+                time.sleep(0.02)
+        finally:
+            proc.kill()
+            proc.wait()
+        wall = time.perf_counter() - t0
+        out.seek(0)
+        return proc.returncode, out.read().decode(errors="replace"), wall, peak_kb / 1024
+
+
+def gib(nbytes):
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+# ------------------------------------------------------------ the other plane kinds
+
+
+def check_kinds(audio, shapes, batches):
+    """The ``kind`` branches of ``device_pipeline.analyze`` other than auto
+    on gliding sines, a filtered-noise file (all at chunk width 256) and
+    the 30 s corpus (chunk width 64), bytes against the port's host route."""
+    left, right = audio[0][3]
+    cut = 269 * BLOCK + 1234
+    cases = [("mono, 3 min", 0, left, ()),
+             ("forced ms, 100 s", 1, left[:cut], right[:cut]),
+             ("forced lr, 100 s", 0, left[:cut], right[:cut]),
+             ("filtered noise, 100 s, auto", 2, *filtered_noise_stereo(cut, 44100, 16, 3)),
+             ("gliding sines, 30 s, auto, chunk width 64", 2, *gliding_stereo(30 * 44100, 44100, 16, 0xC0DEC))]
+    for label, mode, l, r in cases:
+        ref = FrameEncoder(12, mode, 44100, 16, device="cuda").encode_frame(l, r)
+        with Counted(batches) as c:
+            got, wall, peak = timed_on_card(lambda: FrameEncoder(12, mode, 44100, 16, device="cuda").encode(l, r))
+        check(got == ref, f"{label}: port bytes differ from the port's host route")
+        check(c.plans["full"] > 0, f"{label}: the plane pipeline did not run")
+        check_accounting(label, shapes, c.plans, c.launches)
+        dl, dr, _ = FrameDecoder().decode(got)
+        check(np.array_equal(dl, l) and np.array_equal(dr, np.asarray(r, np.int32)), f"{label}: decoded PCM differs")
+        print(f"{label}: {len(l) // BLOCK} full blocks, port bytes == host route, decode PCM-exact; "
+              f"{c.plans['full']} full-width and {c.plans['probe']} probe plans; first encode {wall:.3f} s; "
+              f"peak device memory {gib(peak)}")
+
+
+# ------------------------------------------------------------ many files
+
+
+CLIP_RATE = 44100
+COLD_BATCH_CHILD = """
+import pathlib, sys
+from lac_tpu_torch.ops import _cuda_lib
+from lac_tpu_torch.runtime import native
+root = pathlib.Path(sys.argv[1])
+root.mkdir()
+_cuda_lib.BUILD_DIR = root / "kernels"  # nothing built yet: the threads build both
+native.BUILD_DIR = root / "runtime"
+from lac_tpu_torch.batch import encode_batch
+from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.profile_encode import gliding_stereo
+items = [gliding_stereo(9 * 16384 + 100 * i, 44100, 16, 70 + i) for i in range(4)]
+got = encode_batch(items, 44100, 16, max_workers=4)
+assert got == [FrameEncoder(12, 2, 44100, 16).encode_frame(l, r) for l, r in items], "bytes differ"
+print("built in this process: nvcc %.1f s" % _cuda_lib.build_info["seconds"])
+"""
+
+
+def make_clips():
+    """84 stereo clips from a seed: 80 of 5-35 s and four special ones (an
+    exact multiple of the block, under 8 full blocks, no full block, three
+    blocks), gliding sines and every third filtered noise."""
+    rng = np.random.RandomState(60)
+    frames = [int(s * CLIP_RATE) for s in rng.uniform(5, 35, 80)]
+    for at, n in ((5, 40 * BLOCK), (20, 7 * BLOCK + 5000), (41, BLOCK - 1000), (60, 3 * BLOCK + 77)):
+        frames.insert(at, n)
+
+    def make(i):
+        recipe = filtered_noise_stereo if i % 3 == 2 else gliding_stereo
+        return recipe(frames[i], CLIP_RATE, 16, 1000 + i)
+
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(make, range(len(frames))))
+
+
+def check_decodes(label, frames, items):
+    for i, ((dl, dr, _), (l, r)) in enumerate(zip(decode_batch(frames), items)):
+        want_r = r if r is not None else np.empty(0, np.int32)
+        check(np.array_equal(dl, l) and np.array_equal(dr, want_r), f"{label}: clip {i} decodes to other PCM")
+
+
+def check_batch_paths(tmp, shapes, batches):
+    """The clip batch pooled, file by file and threaded; small pooled batches of the other formats."""
+    t0 = time.perf_counter()
+    clips = make_clips()
+    nfull = [len(l) // BLOCK for l, _ in clips]
+    total, frames = sum(nfull), sum(len(l) for l, _ in clips)
+    check(total > pool._MAX_WAVE_BLOCKS, f"the clips hold {total} full blocks: want more than one wave")
+    check(0 in nfull and any(0 < n < device_pipeline.MIN_FULL_BLOCKS for n in nfull)
+          and any(len(l) % BLOCK == 0 for l, _ in clips), "the special clips are missing")
+    t1 = time.perf_counter()
+    refs = [FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode_frame(l, r) for l, r in clips]
+    print(f"clip batch: {len(clips)} clips, {frames} frames, {total} full blocks (made in {t1 - t0:.1f} s); "
+          f"host route (native planner) {time.perf_counter() - t1:.2f} s")
+    check_decodes("clip batch", refs, clips)
+
+    paths = {
+        "pooled": lambda: pool.encode_pooled(clips, CLIP_RATE, 16),
+        "file by file": lambda: [FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode(l, r) for l, r in clips],
+        "encode_batch, 4 threads": lambda: encode_batch(clips, CLIP_RATE, 16, max_workers=4),
+    }
+    waves = []
+    run_wave = pool.run_group_wave
+
+    def counted_wave(group, *args, **kwargs):
+        waves.append(sum(job.nfull for job in group))
+        return run_wave(group, *args, **kwargs)
+
+    pool.run_group_wave = counted_wave
+    runs = {name: [] for name in paths}
+    try:
+        for turn in range(2):
+            for name, fn in paths.items():
+                with Counted(batches) as c:
+                    got, wall, peak = timed_on_card(fn)
+                check(got == refs, f"clip batch, {name}: frames {[i for i, (g, w) in enumerate(zip(got, refs)) if g != w]}"
+                                   f" differ from the port's host route")
+                runs[name].append((wall, peak, c))
+    finally:
+        pool.run_group_wave = run_wave
+    check(len(waves) >= 4 and waves[: len(waves) // 2] == waves[len(waves) // 2:] and sum(waves) == 2 * total
+          and max(waves) <= pool._MAX_WAVE_BLOCKS, f"clip batch: want two or more waves under the cap, got {waves}")
+    pooled = runs["pooled"][0][2]
+    check(all(v > 0 for v in pooled.launches.values()), f"clip batch: a kernel never launched: {pooled.launches}")
+    for name, turns in runs.items():
+        for _, _, c in turns:
+            check_accounting(f"clip batch, {name}", shapes, c.plans, c.launches)
+    # the counts are exact from any number of threads: four threads launch what one does
+    check(all(runs["encode_batch, 4 threads"][t][2].launches == runs["file by file"][t][2].launches for t in (0, 1)),
+          "clip batch: the threaded run's launch counts differ from the file-by-file run's")
+    print(f"clip batch: every frame == host route and decodes PCM-exact, pooled, file by file and threaded; "
+          f"pooled in {len(waves) // 2} waves of {waves[: len(waves) // 2]} blocks")
+    for name, turns in runs.items():
+        (w0, p0, c), (w1, p1, _) = turns
+        print(f"  {name:24s} {w0:.3f} s first, {w1:.3f} s second = {frames / w1:,.0f} frames/s; "
+              f"{c.plans['full']} full-width and {c.plans['probe']} probe plans; "
+              f"peak device memory {gib(p0)} / {gib(p1)}; launches {c.launches}")
+
+    small = {
+        "6 mono clips": (CLIP_RATE, 16, [(l, None) for l, _ in clips[:6]]),
+        "5 clips at 96 kHz 24-bit": (96000, 24, [
+            (filtered_noise_stereo if i % 2 else gliding_stereo)(int(s * 96000), 96000, 24, 2000 + i)
+            for i, s in enumerate((5.0, 12.3, 20.0, 1.2, 8.0))]),
+        "a wave of under 8 blocks": (CLIP_RATE, 16, [clips[60], clips[41], gliding_stereo(2 * BLOCK, CLIP_RATE, 16, 9)]),
+    }
+    for label, (rate, depth, items) in small.items():
+        want = [FrameEncoder(12, 2 if r is not None else 0, rate, depth, device="cuda").encode_frame(l, r if r is not None else ())
+                for l, r in items]
+        with Counted(batches) as c:
+            got, wall, peak = timed_on_card(lambda: pool.encode_pooled(items, rate, depth))
+        check(got == want, f"pooled, {label}: frames differ from the port's host route")
+        check(c.plans["full"] > 0, f"pooled, {label}: no wave reached the card")
+        check_accounting(f"pooled, {label}", shapes, c.plans, c.launches)
+        check_decodes(f"pooled, {label}", got, items)
+        print(f"pooled, {label}: {sum(len(l) // BLOCK for l, _ in items)} full blocks, frames == host route, decode "
+              f"PCM-exact; {c.plans['full']} full-width and {c.plans['probe']} probe plans; {wall:.3f} s; "
+              f"peak device memory {gib(peak)}")
+
+    rc, out, wall, rss = run_child(["-c", COLD_BATCH_CHILD, os.path.join(tmp, "cold-build")])
+    check(rc == 0, f"a fresh process whose first call is a threaded encode_batch failed ({rc}):\n{out}")
+    print(f"cold encode_batch (fresh process, nothing built, 4 threads): bytes == host route; {out.strip()}; "
+          f"wall {wall:.1f} s, peak RSS {rss:.0f} MiB")
+    return pooled.launches
+
+
+# ------------------------------------------------------------ one long file
+
+
+STREAM_BLOCKS = 2100  # over the CLI's default threshold of 2048 blocks: about 13 minutes
+
+
+def check_stream(tmp, shapes, batches):
+    """A WAV over the CLI's streaming threshold: the route in this process
+    (counted) and in fresh processes (peak RSS), beside the in-memory route."""
+    for knob in ("LAC_TPU_STREAM_BLOCKS", "LAC_TPU_STREAM_CHUNK_BLOCKS"):
+        os.environ.pop(knob, None)
+    frames = STREAM_BLOCKS * BLOCK + 4321
+    left, right = gliding_stereo(frames, CLIP_RATE, 16, 5)
+    wav, lac, back = (os.path.join(tmp, f) for f in ("long.wav", "long.lac", "long-back.wav"))
+    check(write_wav_port(wav, left, right, 2, CLIP_RATE, 16), "long file: WAV write failed")
+    info = stream.scan_wav(wav)
+    check(info is not None and info.frames == frames and -(-frames // BLOCK) >= cli._stream_threshold() > 0,
+          "long file: the scan failed or the file is under the streaming threshold")
+    mem, mem_s, mem_peak = timed_on_card(lambda: FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode(left, right))
+    print(f"long file: {frames} frames, {frames // BLOCK} full blocks, {os.path.getsize(wav) / 1e6:.0f} MB of WAV; "
+          f"FrameEncoder.encode in memory {mem_s:.3f} s, {len(mem)} bytes, peak device memory {gib(mem_peak)}")
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    streamed = []
+    real = stream.encode_wav_to_lac
+
+    def counted_stream(*args, **kwargs):
+        streamed.append(1)
+        return real(*args, **kwargs)
+
+    stream.encode_wav_to_lac = counted_stream
+    walls = {"streaming": [], "in-memory": []}
+    try:
+        for route in ("streaming", "in-memory", "in-memory", "streaming"):
+            if route == "in-memory":
+                os.environ["LAC_TPU_STREAM_BLOCKS"] = "0"
+            with Counted(batches) as c:
+                rc, wall, peak = timed_on_card(lambda: cli.main(["encode", wav, lac]))
+            os.environ.pop("LAC_TPU_STREAM_BLOCKS", None)
+            check(rc == 0 and read(lac) == mem, f"long file, {route} route of the CLI: bytes differ from the in-memory encode")
+            check(all(v > 0 for v in c.launches.values()), f"long file, {route} route: a kernel never launched")
+            check_accounting(f"long file, {route} route", shapes, c.plans, c.launches)
+            walls[route].append((wall, peak, c))
+    finally:
+        stream.encode_wav_to_lac = real
+    check(len(streamed) == 2, f"the streaming route ran {len(streamed)} times in 4 CLI encodes, want 2")
+    for route, turns in walls.items():
+        best = min(w for w, _, _ in turns)
+        print(f"  CLI encode in this process, {route} route: {' / '.join(f'{w:.3f}' for w, _, _ in turns)} s = "
+              f"{frames / best:,.0f} frames/s; {turns[0][2].plans['full']} full-width and {turns[0][2].plans['probe']} "
+              f"probe plans; peak device memory {gib(max(p for _, p, _ in turns))}")
+
+    for route, env in (("streaming", {}), ("in-memory", {"LAC_TPU_STREAM_BLOCKS": "0"})):
+        os.remove(lac)
+        rc, out, wall, rss = run_child(["-m", "lac_tpu_torch.cli", "encode", wav, lac], env)
+        check(rc == 0 and read(lac) == mem, f"long file, {route} route in a fresh process ({rc}): bytes differ\n{out}")
+        print(f"  python -m lac_tpu_torch.cli encode, {route} route, fresh process: wall {wall:.2f} s = "
+              f"{frames / wall:,.0f} frames/s, peak RSS {rss:.0f} MiB")
+    rc, out, wall, rss = run_child(["-m", "lac_tpu_torch.cli", "decode", lac, back])
+    check(rc == 0, f"long file: CLI decode failed ({rc}):\n{out}")
+    pcm = read_wav(back)
+    check(np.array_equal(pcm[:, 0], left) and np.array_equal(pcm[:, 1], right), "long file: decoded PCM differs")
+    print(f"  streamed bytes == in-memory encode; CLI decode PCM-exact (fresh process: {wall:.2f} s, peak RSS {rss:.0f} MiB)")
+    return walls["streaming"][0][2].launches
+
+
+# ------------------------------------------------------------ the cold CLI
+
+
+COLD_CLI_CHILD = """
+import sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+if sys.argv[1] == "context-first":  # start the CUDA context whatever the input needs
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+t2 = time.perf_counter()
+from lac_tpu_torch import cli
+rc = cli.main(sys.argv[2:])
+t3 = time.perf_counter()
+print("import torch %.2f s, context %.2f s, cli.main %.2f s, cuda_initialized=%s"
+      % (t1 - t0, t2 - t1, t3 - t2, torch.cuda.is_initialized()))
+sys.exit(rc)
+"""
+
+
+def check_cold_cli(tmp):
+    """One-shot CLI encodes in fresh processes: an input that the host route
+    plans alone starts no CUDA context; one that reaches the plane pipeline does."""
+    left, right, sr, depth, _ = golden_cases()["correlated"]
+    want = (REPO / "tests" / "golden" / "correlated.lac").read_bytes()
+    wav, lac = os.path.join(tmp, "cold.wav"), os.path.join(tmp, "cold.lac")
+    check(write_wav_port(wav, left, right, 2, sr, depth), "cold CLI: WAV write failed")
+
+    def encode(args, label, initialized=None):
+        if os.path.exists(lac):
+            os.remove(lac)
+        rc, out, wall, rss = run_child(args)
+        with open(lac, "rb") as f:
+            check(rc == 0 and f.read() == want, f"cold CLI, {label} ({rc}): bytes differ\n{out}")
+        if initialized is not None:
+            check(f"cuda_initialized={initialized}" in out, f"cold CLI, {label}: want cuda_initialized={initialized}:\n{out}")
+        inner = "; ".join(line for line in out.splitlines() if "cuda_initialized" in line)
+        print(f"  {label}: wall {wall:.2f} s, peak RSS {rss:.0f} MiB{'; ' + inner if inner else ''}")
+
+    print(f"cold CLI: {len(left)} frames ({len(left) // BLOCK} full blocks: the host route alone), fresh processes, in turns:")
+    probe = ["-c", COLD_CLI_CHILD]
+    encode(["-m", "lac_tpu_torch.cli", "encode", wav, lac], "python -m lac_tpu_torch.cli encode")
+    encode(probe + ["context-first", "encode", wav, lac], "the same encode after a CUDA context was started", True)
+    encode(probe + ["context-first", "encode", wav, lac], "the same encode after a CUDA context was started", True)
+    encode(probe + ["as-is", "encode", wav, lac], "the same encode as the CLI runs it: the card never touched", False)
+
+    l8, r8 = gliding_stereo(8 * BLOCK + 100, 44100, 16, 11)
+    want = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(l8, r8)
+    check(write_wav_port(wav, l8, r8, 2, 44100, 16), "cold CLI: WAV write failed")
+    encode(probe + ["as-is", "encode", wav, lac], "an input of 8 full blocks (the plane pipeline runs)", True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -476,9 +858,7 @@ def main():
           "kernels 2 and 3 must run only on probe plan batches")
     # the timed shapes are every shape the path launches: they account for every launch
     for (label, *_), (_, counts, _), plans in zip(FILES, per_file, plans_per_file):
-        model = per_encode(shapes, plans)
-        check(all(model[k][0] == counts[k] for k in counts),
-              f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
+        model = check_accounting(label, shapes, plans, counts)
         print(f"{label}: {plans['full']} full-width and {plans['probe']} probe plans; per kernel, launches, "
               f"time at the timed shapes and launches x (time - bound), largest first:")
         for name, (n, ms, excess) in sorted(model.items(), key=lambda kv: -kv[1][2]):
@@ -504,16 +884,24 @@ def main():
                   f"encode {first_s:.3f} s first, {warm_s:.3f} s second = {len(left) / warm_s:,.0f} frames/s; "
                   f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
 
+        check_kinds(audio, shapes, batches)
+
         # 5. the goldens (all under 8 full blocks: the host route against the reference binary's bytes)
         check_goldens(tmp)
 
-    # 6. the port stands alone
+        # 6-8. many files, one long file, the cold CLI
+        by_path = {"files": launches, "pooled": check_batch_paths(tmp, shapes, batches),
+                   "stream": check_stream(tmp, shapes, batches)}
+        check_cold_cli(tmp)
+
+    # 9. the port stands alone
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m == "lac_tpu" or m.startswith("lac_tpu."))
     check(not ref_mods, f"lac_tpu modules were imported: {ref_mods}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": launches[name], **records[name]} for name in KERNELS
+         "launches": launches[name], "launches_by_path": {path: n[name] for path, n in by_path.items()},
+         **records[name]} for name in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -15,9 +15,11 @@ and the standard library, never ``jax`` and nothing of ``lac_tpu``.
 Output bytes are identical to :mod:`lac_tpu`'s for the same input and
 knobs.
 
-Entry points (``encoder.FrameEncoder``, ``cli.main``) run on the CUDA
-card unless the caller passes ``device="cpu"``; array helpers run on
-the device of the tensors they are given.
+Entry points (``encoder.FrameEncoder``, ``cli.main``,
+``stream.encode_wav_to_lac``, ``batch.encode_batch``,
+``pool.encode_pooled``) run on the CUDA card unless the caller passes
+``device="cpu"``; array helpers run on the device of the tensors they
+are given.
 """
 
 import numpy as np
@@ -56,16 +58,25 @@ class HostCopy:
         return self.host.numpy()
 
 
-def resolve_device(device) -> torch.device:
+def check_device(device) -> torch.device:
     """``device`` (str or torch.device) -> torch.device, checked: a CUDA
     device without a usable card raises instead of silently running on
-    the CPU."""
+    the CPU. Starts no CUDA context (``torch.cuda.is_available`` counts
+    the cards and no more), so an entry point can insist on the card
+    before it knows whether the input will reach it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev
+
+
+def resolve_device(device) -> torch.device:
+    """:func:`check_device`, then the card's index filled in: a bare
+    "cuda" becomes the current device, which starts the CUDA context."""
+    dev = check_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

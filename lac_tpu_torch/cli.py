@@ -12,19 +12,27 @@ output, messages and exit codes as ``lac_tpu.cli``. ``encode`` and
 ``selftest`` plan on the CUDA card; :func:`main` takes ``device="cpu"``
 from a caller that wants the CPU (the tests). Without a card the default
 is an error, reported as ``Error: ...`` with exit code 1; ``decode`` is
-host-native (the native runtime) and needs no card. The
-whole input is read into memory (the JAX package streams inputs of
-2048 blocks or more; not ported yet).
+host-native (the native runtime) and needs no card.
+
+``encode`` scans the WAV before it reads it. An input of at least
+``LAC_TPU_STREAM_BLOCKS`` blocks (default 2048; 0 turns the route off)
+streams through :func:`.stream.encode_wav_to_lac` into the staged
+output, ``LAC_TPU_STREAM_CHUNK_BLOCKS`` blocks at a time (default 512),
+in bounded memory; the debug flags keep the in-memory path. The card is
+checked for at once and its CUDA context starts only when the plane
+pipeline runs: an input under ``device_pipeline.MIN_FULL_BLOCKS`` full
+blocks is planned on the host and starts none.
 """
 
 import math
 import os
 import sys
+import threading
 import time
 
 import numpy as np
 
-from . import resolve_device
+from . import check_device
 from .format import constants as C
 from .utils.staged_output import StagedOutputFile, paths_refer_to_same_file
 from .utils.threads import parse_thread_limit, parse_threads_flag
@@ -55,6 +63,37 @@ def _load_file(path: str):
             return f.read()
     except OSError:
         return None
+
+
+def _stream_threshold() -> int:
+    """Blocks from which ``encode`` streams (``LAC_TPU_STREAM_BLOCKS``; 0: never)."""
+    try:
+        return int(os.environ.get("LAC_TPU_STREAM_BLOCKS", "2048"))
+    except ValueError:
+        return 2048
+
+
+# pooled-encode injection (:mod:`.pool`): a batcher pre-reads the WAV and
+# plans a file's full blocks inside a shared device wave, then replays
+# the ordinary CLI encode with both handed over thread-locally: the CLI
+# path (flags, staged output, messages, exit codes) stays the single
+# source of truth and the WAV is never read twice.
+_inject_tls = threading.local()
+
+
+def _set_encode_injection(in_path, wav, planes):
+    """Hand the next ``encode`` of ``in_path`` on this thread its WAV
+    (``read_wav``'s tuple) and its full blocks' planes (what
+    ``FrameEncoder.encode_frame`` takes, or None to plan them anew)."""
+    _inject_tls.data = (in_path, wav, planes)
+
+
+def _pop_encode_injection(in_path):
+    d = getattr(_inject_tls, "data", None)
+    if d is not None and d[0] == in_path:
+        _inject_tls.data = None
+        return d
+    return None
 
 
 _ENCODE_SWITCHES = {
@@ -120,11 +159,36 @@ def _cmd_encode(argv, device) -> int:
         _usage()
         return 1
     thread_count = _resolve_threads(opts["thread_count"])
-    wav = read_wav(in_path)
-    if wav is None:
-        sys.stderr.write(f"Failed to read WAV: {in_path}\n")
-        return 1
-    left, right, channels, sample_rate, bit_depth = wav
+
+    # bounded-memory routing: inputs of at least LAC_TPU_STREAM_BLOCKS
+    # blocks stream a chunk of blocks at a time instead of loading the
+    # whole PCM; output bytes are identical. Debug flags print per-block
+    # data, so they keep the single-pass in-memory path.
+    any_debug = opts["debug_zr"] or opts["debug_lpc"] or opts["debug_stereo_est"] or opts["debug_partitions"]
+    # pooled handoff: a batcher already read this WAV and planned its
+    # full blocks in a shared device wave: reuse both (a re-read could
+    # differ from the planned planes if the file changed)
+    inject = _pop_encode_injection(in_path)
+    stream_info = None
+    stream_threshold = _stream_threshold()
+    if inject is None and not any_debug and stream_threshold > 0:
+        from .stream import scan_wav
+
+        info = scan_wav(in_path)
+        if info is not None and -(-info.frames // C.MAX_BLOCK_SIZE) >= stream_threshold:
+            stream_info = info
+
+    if stream_info is not None:
+        left = right = None
+        channels, sample_rate, bit_depth = stream_info.channels, stream_info.sample_rate, stream_info.bit_depth
+    elif inject is not None:
+        left, right, channels, sample_rate, bit_depth = inject[1]
+    else:
+        wav = read_wav(in_path)
+        if wav is None:
+            sys.stderr.write(f"Failed to read WAV: {in_path}\n")
+            return 1
+        left, right, channels, sample_rate, bit_depth = wav
     effective_mode = 0 if channels == 1 else opts["stereo_mode"]
 
     def make_encoder():
@@ -141,7 +205,12 @@ def _cmd_encode(argv, device) -> int:
         from .runtime.native import thread_collector_reset
 
         thread_collector_reset()
-    bitstream = encoder.encode(left, right)
+    if stream_info is not None:
+        return _encode_streaming(in_path, out_path, encoder, stream_info, opts["debug_threads"])
+    if inject is not None and inject[2] is not None:
+        bitstream = encoder.encode_frame(left, right, inject[2])
+    else:
+        bitstream = encoder.encode(left, right)
     if opts["debug_zr"]:
         baseline = make_encoder()
         baseline.set_zero_run_enabled(False)
@@ -164,6 +233,32 @@ def _cmd_encode(argv, device) -> int:
             return 1
     sys.stdout.write(f"Encoded {in_path} -> {out_path} ({len(bitstream)} bytes)\n")
     _report_threads(opts["debug_threads"])
+    return 0
+
+
+def _encode_streaming(in_path, out_path, encoder, info, debug_threads) -> int:
+    """``encode`` through the bounded-memory route, into the staged output."""
+    from .stream import WavReadError, encode_wav_to_lac
+
+    with StagedOutputFile(out_path) as staged:
+        if not staged.is_ready():
+            sys.stderr.write(f"Failed to write LAC file: {out_path}\n")
+            return 1
+        try:
+            nbytes = encode_wav_to_lac(in_path, staged.path(), encoder.stereo_mode, encoder=encoder, info=info)
+        except WavReadError:
+            nbytes = None  # the input broke or changed mid-encode: a read failure
+        except OSError:
+            sys.stderr.write(f"Failed to write LAC file: {out_path}\n")
+            return 1
+        if nbytes is None:
+            sys.stderr.write(f"Failed to read WAV: {in_path}\n")
+            return 1
+        if not staged.publish(in_path):
+            sys.stderr.write(f"Failed to write LAC file: {out_path}\n")
+            return 1
+    sys.stdout.write(f"Encoded {in_path} -> {out_path} ({nbytes} bytes)\n")
+    _report_threads(debug_threads)
     return 0
 
 
@@ -301,7 +396,7 @@ def main(argv=None, device="cuda") -> int:
             return 1
         if mode == "decode":  # host-native: no device work
             return _cmd_decode(argv[1:])
-        device = resolve_device(device)
+        device = check_device(device)  # a missing card is an error now; its context starts on first use
         if mode == "encode":
             return _cmd_encode(argv[1:], device)
         return _cmd_selftest(device)

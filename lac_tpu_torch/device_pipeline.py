@@ -22,6 +22,8 @@ copies start as soon as their producer is queued, so the host's LD and
 native emit overlap the device's analyze and plan.
 """
 
+import threading
+
 import numpy as np
 import torch
 
@@ -41,6 +43,13 @@ CHUNK_BLOCKS = 0
 CHUNK_LADDER = (64, 128, 256)
 MIN_FULL_BLOCKS = 8
 PIPE_DEPTH = 2  # analyze -> plan gap, in chunks
+# One thread at a time queues a chunk's device work. A stage is thousands
+# of small torch operators, each of which hands the interpreter lock over
+# and takes it back: pipelines on several threads (``batch.encode_batch``)
+# that interleave their stages pay a thread switch per operator (measured
+# on an H100: 4 threads 3x slower than one; ``ab_batch_threads.py``).
+# Emit, the waits on copies and the host route run outside the lock.
+_dispatch_lock = threading.Lock()
 
 
 def chunk_width(nfull):
@@ -276,24 +285,44 @@ class _ChunkJob:
 
 
 class PlanePipeline:
-    def __init__(self, frame_enc, left, right, nfull, kind, device):
+    """The plane pipeline over ``nfull`` full blocks on ``device``.
+
+    The blocks are the leading ones of ``left``/``right`` or, with
+    ``views=(lview, rview)``, the rows of prebuilt (nfull, N) plane
+    matrices (``rview`` None for mono) that may come from many files
+    (:mod:`.pool`): once the planes are cut a block no longer knows its
+    file, so the pipeline is the same."""
+
+    def __init__(self, frame_enc, left, right, nfull, kind, device, views=None):
         self.device = device
         self.kind = kind
         self.zero_run = bool(frame_enc.zero_run_enabled)
         self.partitioning = bool(frame_enc.partitioning_enabled)
         self.thread_count = int(frame_enc.thread_count)
         self.K = chunk_width(nfull)
-        dt = np.int16 if frame_enc.bit_depth == 16 else np.int32
-        self.lview = np.ascontiguousarray(left[: nfull * N].reshape(nfull, N), dtype=dt)
-        self.rview = (
-            np.ascontiguousarray(right[: nfull * N].reshape(nfull, N), dtype=dt) if kind != "mono" else None
-        )
+        if views is not None:
+            self.lview, self.rview = views
+            if self.lview.shape != (nfull, N) or (kind == "mono") != (self.rview is None):
+                raise ValueError("views must be (nfull, N) plane matrices, the right one None for mono")
+        else:
+            dt = np.int16 if frame_enc.bit_depth == 16 else np.int32
+            self.lview = np.ascontiguousarray(left[: nfull * N].reshape(nfull, N), dtype=dt)
+            self.rview = (
+                np.ascontiguousarray(right[: nfull * N].reshape(nfull, N), dtype=dt) if kind != "mono" else None
+            )
         self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0)) for c0 in range(0, nfull, self.K)]
 
-    def run(self):
+    def run(self, progress_cb=None):
         """Sliding window: analyze chunk j while planning chunk j-D and
         emitting chunk j-D-1 (D = PIPE_DEPTH). Returns (payloads
-        {block: {slot: bytes}}, flags {block: 0|1}, uncertain {block: bool})."""
+        {block: {slot: bytes}}, flags {block: 0|1}, uncertain {block: bool}).
+
+        ``progress_cb(done_blocks, payloads, flags, uncertain)`` fires
+        after each chunk's emit with the number of leading blocks that
+        are complete (chunks finish in block order) and the very dicts
+        this method returns, still filling: a pooled wave hands each
+        file's entries over, popping them, while later chunks are on the
+        device."""
         payloads, flags, uncertain = {}, {}, {}
         jobs, depth = self.jobs, PIPE_DEPTH
 
@@ -303,15 +332,21 @@ class PlanePipeline:
             flags.update(f)
             uncertain.update(u)
             jobs[i].dev = None  # release the chunk's device buffers
+            if progress_cb is not None:
+                progress_cb(jobs[i].c0 + jobs[i].kc, payloads, flags, uncertain)
+
+        def _dispatch(stage):
+            with _dispatch_lock:
+                stage()
 
         for j, job in enumerate(jobs):
-            job.dispatch_analyze()
+            _dispatch(job.dispatch_analyze)
             if j >= depth:
-                jobs[j - depth].dispatch_plan()
+                _dispatch(jobs[j - depth].dispatch_plan)
             if j >= depth + 1:
                 _finish(j - depth - 1)
         for i in range(max(len(jobs) - depth, 0), len(jobs)):
-            jobs[i].dispatch_plan()
+            _dispatch(jobs[i].dispatch_plan)
         for i in range(max(len(jobs) - depth - 1, 0), len(jobs)):
             _finish(i)
         return payloads, flags, uncertain

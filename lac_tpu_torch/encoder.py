@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from . import resolve_device, upload
+from . import check_device, resolve_device, upload
 from .format import constants as C
 from .format.header import FrameHeader
 from .format.inspect import parse_block_header
@@ -459,7 +459,7 @@ class FrameEncoder:
 
     def __init__(self, order=12, stereo_mode=C.STEREO_PER_BLOCK, sample_rate=44100,
                  bit_depth=16, device="cuda"):
-        self.device = resolve_device(device)
+        self._device = check_device(device)  # a missing card raises here; the context starts on first use
         self.order = order
         self.stereo_mode = stereo_mode
         self.sample_rate = sample_rate
@@ -470,6 +470,13 @@ class FrameEncoder:
         self.debug_lpc = False
         self.debug_stereo_est = False
         self.debug_partitions = False
+
+    @property
+    def device(self):
+        """The resolved device. A CUDA context starts when this is first
+        read, so an input that never reaches the plane pipeline starts none."""
+        self._device = resolve_device(self._device)
+        return self._device
 
     def set_zero_run_enabled(self, enabled):
         self.zero_run_enabled = enabled

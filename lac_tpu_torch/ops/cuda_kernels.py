@@ -9,8 +9,11 @@ version; a tensor on a CUDA device launches the kernel (built from
 ``lac_tpu_torch/csrc`` on first use) or raises. There is no fallback
 from a CUDA tensor to the plain version. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else, so a run can show
-that its path went through the kernels.
+that its path went through the kernels; the counts are exact from any
+number of host threads (one lock around each increment).
 """
+
+import threading
 
 import torch
 
@@ -26,9 +29,18 @@ launches = {
 }
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name):
+    with _count_lock:  # += on a dict entry is a read and a write: not atomic between threads
+        launches[name] += 1
 
 
 def _on_cpu(x, name, contiguous=True):
@@ -94,7 +106,7 @@ def k_cost_sums(u32_rows, head=None):
     out_head = torch.empty_like(out) if head else None
     _launch("lac_k_cost_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n), head or 0,
             out_head.data_ptr() if head else None, out.data_ptr())
-    launches["k_cost_sums"] += 1
+    _count("k_cost_sums")
     return (out_head, out) if head else out
 
 
@@ -120,7 +132,7 @@ def k_cost_partition_sums(u32_rows, max_p):
     out = torch.empty((rows, (2 << max_p) - 1, 17), dtype=torch.int32, device=u32_rows.device)
     _launch("lac_k_cost_partition_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n),
             max_p, out.data_ptr())
-    launches["k_cost_sums"] += 1
+    _count("k_cost_sums")
     return [out[:, (1 << p) - 1 : (2 << p) - 1] for p in range(max_p + 1)]
 
 
@@ -143,7 +155,7 @@ def split_cumsums_u32(u32_rows):
     hi = torch.empty_like(u32_rows)
     lo = torch.empty_like(u32_rows)
     _launch("lac_split_cumsums_u32", u32_rows, u32_rows.data_ptr(), rows, n, hi.data_ptr(), lo.data_ptr())
-    launches["split_cumsums_u32"] += 1
+    _count("split_cumsums_u32")
     return hi, lo
 
 
@@ -158,7 +170,7 @@ def cumsum_u32(u32_rows):
     rows, n = u32_rows.shape
     out = torch.empty_like(u32_rows)
     _launch("lac_cumsum_u32", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
-    launches["cumsum_u32"] += 1
+    _count("cumsum_u32")
     return out
 
 
@@ -173,7 +185,7 @@ def prefix_max_i32(x_rows):
     rows, n = x_rows.shape
     out = torch.empty_like(x_rows)
     _launch("lac_prefix_max_i32", x_rows, x_rows.data_ptr(), rows, n, out.data_ptr())
-    launches["prefix_max_i32"] += 1
+    _count("prefix_max_i32")
     return out
 
 
@@ -188,7 +200,7 @@ def suffix_min_i32(x_rows):
     rows, n = x_rows.shape
     out = torch.empty_like(x_rows)
     _launch("lac_suffix_min_i32", x_rows, x_rows.data_ptr(), rows, n, out.data_ptr())
-    launches["suffix_min_i32"] += 1
+    _count("suffix_min_i32")
     return out
 
 
@@ -220,5 +232,5 @@ def k_after_stateful_fused(u32_rows):
                          f"and 16-byte aligned rows, got n={n}")
     out = torch.empty_like(u32_rows)
     _launch("lac_k_after_stateful", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
-    launches["k_after_stateful_fused"] += 1
+    _count("k_after_stateful_fused")
     return out

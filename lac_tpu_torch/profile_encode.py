@@ -51,6 +51,29 @@ def gliding_stereo(frames, sample_rate, depth, seed):
     return left, right
 
 
+def filtered_noise_stereo(frames, sample_rate, depth, seed):
+    """Low-passed noise and no tone, made from ``seed``: the noise part of
+    the recipe above (white noise through the same moving blend, six
+    passes) at music level under the same envelope. The right channel is
+    the left delayed by three samples plus noise of its own whose level
+    swells and fades, so correlated and independent stretches both occur."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(frames, dtype=np.float64) / sample_rate
+
+    def lowpassed(x, passes):
+        for _ in range(passes):
+            x = 0.5 * x + 0.5 * np.concatenate([[0.0], x[:-1]])
+        return x
+
+    base = lowpassed(rng.standard_normal(frames), 6)
+    own = lowpassed(rng.standard_normal(frames), 2) * 0.5 * (1 + np.sin(2 * np.pi * 0.11 * t))
+    env = 0.25 + 0.75 * 0.5 * (1 + np.sin(2 * np.pi * 0.37 * t))
+    scale, lim = (1, 1 << 15) if depth == 16 else (256, 1 << 23)
+    left = np.clip(base * env * 24000 * scale, -lim, lim - 1).astype(np.int32)
+    right = np.clip((0.9 * np.roll(base, 3) + 0.6 * own) * env * 24000 * scale, -lim, lim - 1).astype(np.int32)
+    return left, right
+
+
 # the six kernels by the names of their device functions (csrc/*.cu; row_scan
 # is one template, told apart by its op type; SplitAddU32 before AddU32)
 _KERNEL_MARKS = (

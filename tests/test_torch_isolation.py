@@ -25,6 +25,7 @@ PORT_MODULES = [
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT_FILES
 ]
+assert {"lac_tpu_torch.stream", "lac_tpu_torch.batch", "lac_tpu_torch.pool"} <= set(PORT_MODULES)
 CONSTANT_NAMES = sorted(n for n in vars(ref_constants) if not n.startswith("_"))
 
 
@@ -97,3 +98,42 @@ def test_cli_defaults_to_the_card(no_card, capsys, argv):
     assert cli.main(argv) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: device 'cuda' requested") and "is_available() is False" in err
+
+
+def test_cli_starts_the_card_only_for_an_input_that_reaches_it(tmp_path, capsys, monkeypatch):
+    """With a card present (simulated), a one-shot encode of an input under
+    ``device_pipeline.MIN_FULL_BLOCKS`` full blocks is planned on the host and never
+    resolves the device (what starts the CUDA context); a longer input does."""
+    import numpy as np
+
+    import lac_tpu_torch
+    from lac_tpu_torch import encoder
+    from lac_tpu_torch.io import write_wav
+
+    resolved = []
+
+    def resolve(device):
+        resolved.append(str(device))
+        raise RuntimeError("the card was resolved")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(encoder, "resolve_device", resolve)
+    assert lac_tpu_torch.check_device("cuda").type == "cuda"
+    rng = np.random.RandomState(3)
+    short, long_, out = (str(tmp_path / n) for n in ("short.wav", "long.wav", "out.lac"))
+    for path, frames in ((short, 16384 * 7 + 100), (long_, 16384 * 8)):
+        pcm = rng.randint(-3000, 3000, frames).astype(np.int32)
+        assert write_wav(path, pcm, pcm // 2, 2, 44100, 16)
+    assert cli.main(["encode", short, out]) == 0 and resolved == []
+    with open(out, "rb") as f:
+        assert f.read() == FrameEncoder(12, 2, 44100, 16, device="cpu").encode(*_pcm(short))
+    assert capsys.readouterr().out.startswith("Encoded ")
+    assert cli.main(["encode", long_, out]) == 1 and resolved == ["cuda"]
+    assert capsys.readouterr().err == "Error: the card was resolved\n"
+
+
+def _pcm(path):
+    from lac_tpu_torch.io import read_wav
+
+    left, right, *_ = read_wav(path)
+    return left, right
