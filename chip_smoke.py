@@ -47,13 +47,31 @@
    encode`` in a fresh process starts no CUDA context (wall and peak RSS
    beside the same call with the context started first); an input of 8
    full blocks starts one;
-9. checks that neither jax nor any lac_tpu module was imported.
+9. checks that neither jax nor any lac_tpu module was imported (at the end);
+10. the service (``serve.py``) on the card: phase 6's clips written as WAVs
+    and encoded through ``serve.serve`` in this process, pooled
+    (``--workers=4``), ``--workers=4 --no-pool`` and ``--workers=1``, two
+    turns each (every id answered once, every output equal to the host
+    route, decodes through the service PCM-exact, launches accounted for,
+    no wave failed, waves and their walls printed beside phase 6's), and
+    as a diagnostic pooled with each file's finish held until no wave
+    runs (does host work beside a wave slow its dispatch?); a
+    mixed batch (mono, 96 kHz 24-bit, forced lr, ``--debug-threads``, a
+    clip without a full block and phase 7's WAV, which streams); fresh
+    ``python -m lac_tpu_torch.serve --workers=4`` processes with and
+    without ``--warm`` (time to the warm-up's and the wait's answers, the
+    first job's ms, peak RSS) and one with nothing built, so g++ and nvcc
+    run inside the service while every stdout line stays JSON; the
+    watchdog on a real wave in a fresh process (a deadline of a tenth of
+    the longest wave: released jobs' bytes, the rest answered with the
+    sick-card error and no output, decode and ping still served, exit 0).
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
 Exits non-zero without a CUDA card.
 """
 
+import io
 import json
 import os
 import pathlib
@@ -61,6 +79,7 @@ import platform
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 from concurrent.futures import ThreadPoolExecutor
@@ -68,7 +87,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lac_tpu_torch import cli, device_pipeline, pool, stream
+from lac_tpu_torch import cli, device_pipeline, pool, serve, stream
 from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import FrameDecoder
 from lac_tpu_torch.encoder import FrameEncoder
@@ -458,6 +477,34 @@ def check_accounting(label, shapes, plans, counts):
     return model
 
 
+class WaveLog:
+    """Each pooled wave of a stretch of the run: its full blocks and its wall
+    (``pool.run_group_wave`` wrapped on entry, restored on exit)."""
+
+    def __enter__(self):
+        self.walls = []
+        self.real = real = pool.run_group_wave
+
+        def timed(group, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(group, *args, **kwargs)
+            finally:
+                self.walls.append((sum(job.nfull for job in group), time.perf_counter() - t0))
+
+        pool.run_group_wave = timed
+        return self
+
+    def __exit__(self, *exc):
+        pool.run_group_wave = self.real
+
+    def blocks(self):
+        return [b for b, _ in self.walls]
+
+    def text(self):
+        return ", ".join(f"{b} blocks {s:.3f} s" for b, s in self.walls)
+
+
 def timed_on_card(fn):
     """(result, wall s, peak device bytes) of ``fn()``, the card idle before and after."""
     torch.cuda.synchronize()
@@ -477,28 +524,84 @@ def run_child(args, env=None, limit_s=300):
     peak is the largest resident size seen in /proc/<pid>/statm, read every
     20 ms while the child runs: ``ru_maxrss`` would not do, a child starts
     with its parent's peak, and this process holds gigabytes."""
-    child_env = {k: v for k, v in os.environ.items() if not k.startswith("LAC_TPU_STREAM")}
-    child_env.update(env or {})
     with tempfile.TemporaryFile() as out:
         t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, *args], cwd=REPO, env=child_env, stdout=out, stderr=subprocess.STDOUT)
-        peak_kb = 0
-        try:
-            while proc.poll() is None:
-                if time.perf_counter() - t0 > limit_s:
-                    proc.kill()
-                try:
-                    with open(f"/proc/{proc.pid}/statm") as f:
-                        peak_kb = max(peak_kb, int(f.read().split()[1]) * PAGE_KB)
-                except (OSError, IndexError, ValueError):  # the child has just gone
-                    pass
-                time.sleep(0.02)
-        finally:
-            proc.kill()
-            proc.wait()
+        proc = subprocess.Popen([sys.executable, *args], cwd=REPO, env=child_env(env), stdout=out,
+                                stderr=subprocess.STDOUT)
+        peak_kb = watch(proc, t0, limit_s)
         wall = time.perf_counter() - t0
         out.seek(0)
         return proc.returncode, out.read().decode(errors="replace"), wall, peak_kb / 1024
+
+
+def child_env(env):
+    out = {k: v for k, v in os.environ.items() if not k.startswith("LAC_TPU_STREAM")}
+    out.update(env or {})
+    return out
+
+
+def watch(proc, t0, limit_s):
+    """Peak resident KiB of ``proc`` from /proc/<pid>/statm, read every 20 ms
+    until it exits; killed after ``limit_s``."""
+    peak_kb = 0
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > limit_s:
+                proc.kill()
+            try:
+                with open(f"/proc/{proc.pid}/statm") as f:
+                    peak_kb = max(peak_kb, int(f.read().split()[1]) * PAGE_KB)
+            except (OSError, IndexError, ValueError):  # the child has just gone
+                pass
+            time.sleep(0.02)
+    finally:
+        proc.kill()
+        proc.wait()
+    return peak_kb
+
+
+def run_serve_child(args, script, expect, env=None, linger_s=0.0, limit_s=300):
+    """``python3 <args>`` from the checkout with ``script`` on its stdin, which
+    stays open until ``expect`` lines are out and ``linger_s`` more seconds
+    have passed. Returns (exit code, [(s since start, parsed stdout line)],
+    stderr, wall s, peak RSS in MiB); a stdout line that is not JSON fails."""
+    with tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *args], cwd=REPO, env=child_env(env), stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+        raw = []
+
+        def read():
+            for line in proc.stdout:
+                raw.append((time.perf_counter() - t0, line))
+
+        def feed():
+            try:
+                proc.stdin.write(script)
+                proc.stdin.flush()
+                while len(raw) < expect and proc.poll() is None and time.perf_counter() - t0 < limit_s:
+                    time.sleep(0.05)
+                time.sleep(linger_s)
+                proc.stdin.close()
+            except OSError:  # the child has gone
+                pass
+
+        threads = [threading.Thread(target=fn, daemon=True) for fn in (read, feed)]
+        for t in threads:
+            t.start()
+        peak_kb = watch(proc, t0, limit_s)
+        wall = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=10)
+        err.seek(0)
+        errors = err.read().decode(errors="replace")
+    lines = []
+    for at, line in raw:
+        try:
+            lines.append((at, json.loads(line)))
+        except ValueError:
+            raise RuntimeError(f"chip_smoke: {args}: a stdout line is not JSON: {line!r}\n{errors[-4000:]}") from None
+    return proc.returncode, lines, errors, wall, peak_kb / 1024
 
 
 def gib(nbytes):
@@ -598,16 +701,8 @@ def check_batch_paths(tmp, shapes, batches):
         "file by file": lambda: [FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode(l, r) for l, r in clips],
         "encode_batch, 4 threads": lambda: encode_batch(clips, CLIP_RATE, 16, max_workers=4),
     }
-    waves = []
-    run_wave = pool.run_group_wave
-
-    def counted_wave(group, *args, **kwargs):
-        waves.append(sum(job.nfull for job in group))
-        return run_wave(group, *args, **kwargs)
-
-    pool.run_group_wave = counted_wave
     runs = {name: [] for name in paths}
-    try:
+    with WaveLog() as log:
         for turn in range(2):
             for name, fn in paths.items():
                 with Counted(batches) as c:
@@ -615,8 +710,7 @@ def check_batch_paths(tmp, shapes, batches):
                 check(got == refs, f"clip batch, {name}: frames {[i for i, (g, w) in enumerate(zip(got, refs)) if g != w]}"
                                    f" differ from the port's host route")
                 runs[name].append((wall, peak, c))
-    finally:
-        pool.run_group_wave = run_wave
+    waves = log.blocks()
     check(len(waves) >= 4 and waves[: len(waves) // 2] == waves[len(waves) // 2:] and sum(waves) == 2 * total
           and max(waves) <= pool._MAX_WAVE_BLOCKS, f"clip batch: want two or more waves under the cap, got {waves}")
     pooled = runs["pooled"][0][2]
@@ -628,7 +722,7 @@ def check_batch_paths(tmp, shapes, batches):
     check(all(runs["encode_batch, 4 threads"][t][2].launches == runs["file by file"][t][2].launches for t in (0, 1)),
           "clip batch: the threaded run's launch counts differ from the file-by-file run's")
     print(f"clip batch: every frame == host route and decodes PCM-exact, pooled, file by file and threaded; "
-          f"pooled in {len(waves) // 2} waves of {waves[: len(waves) // 2]} blocks")
+          f"pooled in {len(waves) // 2} waves of {waves[: len(waves) // 2]} blocks; wave walls {log.text()}")
     for name, turns in runs.items():
         (w0, p0, c), (w1, p1, _) = turns
         print(f"  {name:24s} {w0:.3f} s first, {w1:.3f} s second = {frames / w1:,.0f} frames/s; "
@@ -642,9 +736,11 @@ def check_batch_paths(tmp, shapes, batches):
             for i, s in enumerate((5.0, 12.3, 20.0, 1.2, 8.0))]),
         "a wave of under 8 blocks": (CLIP_RATE, 16, [clips[60], clips[41], gliding_stereo(2 * BLOCK, CLIP_RATE, 16, 9)]),
     }
+    wants = {}
     for label, (rate, depth, items) in small.items():
-        want = [FrameEncoder(12, 2 if r is not None else 0, rate, depth, device="cuda").encode_frame(l, r if r is not None else ())
-                for l, r in items]
+        want = wants[label] = [
+            FrameEncoder(12, 2 if r is not None else 0, rate, depth, device="cuda").encode_frame(l, r if r is not None else ())
+            for l, r in items]
         with Counted(batches) as c:
             got, wall, peak = timed_on_card(lambda: pool.encode_pooled(items, rate, depth))
         check(got == want, f"pooled, {label}: frames differ from the port's host route")
@@ -659,7 +755,11 @@ def check_batch_paths(tmp, shapes, batches):
     check(rc == 0, f"a fresh process whose first call is a threaded encode_batch failed ({rc}):\n{out}")
     print(f"cold encode_batch (fresh process, nothing built, 4 threads): bytes == host route; {out.strip()}; "
           f"wall {wall:.1f} s, peak RSS {rss:.0f} MiB")
-    return pooled.launches
+    return {"launches": pooled.launches, "clips": clips, "refs": refs, "frames": frames,
+            "mono": (small["6 mono clips"][2][0][0], wants["6 mono clips"][0]),
+            "hires": (small["5 clips at 96 kHz 24-bit"][2][0], wants["5 clips at 96 kHz 24-bit"][0]),
+            "pooled_s": runs["pooled"][1][0], "file_by_file_s": runs["file by file"][1][0],
+            "pooled_waves": log.walls[: len(waves) // 2]}
 
 
 # ------------------------------------------------------------ one long file
@@ -728,7 +828,7 @@ def check_stream(tmp, shapes, batches):
     pcm = read_wav(back)
     check(np.array_equal(pcm[:, 0], left) and np.array_equal(pcm[:, 1], right), "long file: decoded PCM differs")
     print(f"  streamed bytes == in-memory encode; CLI decode PCM-exact (fresh process: {wall:.2f} s, peak RSS {rss:.0f} MiB)")
-    return walls["streaming"][0][2].launches
+    return walls["streaming"][0][2].launches, wav, mem
 
 
 # ------------------------------------------------------------ the cold CLI
@@ -782,6 +882,272 @@ def check_cold_cli(tmp):
     want = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(l8, r8)
     check(write_wav_port(wav, l8, r8, 2, 44100, 16), "cold CLI: WAV write failed")
     encode(probe + ["as-is", "encode", wav, lac], "an input of 8 full blocks (the plane pipeline runs)", True)
+
+
+# ------------------------------------------------------------ the service
+
+
+COLD_SERVE_CHILD = """
+import pathlib, sys
+from lac_tpu_torch.ops import _cuda_lib
+from lac_tpu_torch.runtime import native
+root = pathlib.Path(sys.argv[1])
+root.mkdir()
+_cuda_lib.BUILD_DIR = root / "kernels"  # nothing built yet: the service's first jobs build both
+native.BUILD_DIR = root / "runtime"
+from lac_tpu_torch import serve
+rc = serve.serve(sys.argv[2:])
+sys.stderr.write("built in the service: nvcc %.1f s\\n" % _cuda_lib.build_info["seconds"])
+sys.exit(rc)
+"""
+
+
+class Wire:
+    """A ``serve()`` stdout that keeps each response with its arrival time (s since creation)."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.lines = []
+        self.buf = ""
+
+    def write(self, text):
+        self.buf += text
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append((time.perf_counter() - self.t0, json.loads(line)))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def answered(label, lines, n):
+    """id -> response of ``lines`` [(s, response)]; every id 1..n answered exactly once."""
+    got = {}
+    for _, r in lines:
+        check(r["id"] not in got, f"{label}: id {r['id']} answered twice")
+        got[r["id"]] = r
+    check(sorted(got) == list(range(1, n + 1)), f"{label}: answered ids {sorted(got)}, want 1..{n}")
+    return got
+
+
+def at_id(lines, job_id):
+    return next(at for at, r in lines if r["id"] == job_id)
+
+
+def take(path):
+    """The file's bytes; the file is deleted (temp space stays small)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    os.remove(path)
+    return data
+
+
+def check_serve(tmp, shapes, batches, batch, long_file):
+    """The service on the card: the clip batch through ``serve.serve`` in this
+    process, pooled (--workers=4), --workers=4 --no-pool and --workers=1, two
+    turns each; a mixed batch; fresh service processes (warm, not warm,
+    nothing built); the watchdog on a real wave. Returns the launches of the
+    first pooled run."""
+    clips, refs, frames = batch["clips"], batch["refs"], batch["frames"]
+    d = os.path.join(tmp, "serve")
+    os.mkdir(d)
+    wavs = [os.path.join(d, f"clip{i}.wav") for i in range(len(clips))]
+    with ThreadPoolExecutor(8) as ex:
+        check(all(ex.map(lambda i: write_wav_port(wavs[i], *clips[i], 2, CLIP_RATE, 16), range(len(clips)))),
+              "service: clip WAV write failed")
+    n = len(clips)
+
+    def clip_script(tag, decode=False):
+        outs = [os.path.join(d, f"{tag}{i}.lac") for i in range(n)]
+        lines = [f"encode {w} {o}" for w, o in zip(wavs, outs)] + ["wait"]
+        backs = [os.path.join(d, f"{tag}{i}.wav") for i in range(n)] if decode else []
+        lines += [f"decode {o} {b}" for o, b in zip(outs, backs)] + (["wait"] if decode else [])
+        return "".join(line + "\n" for line in lines), outs, backs
+
+    def check_outputs(label, outs, backs=(), skip=()):
+        bad = [i for i, o in enumerate(outs) if i not in skip and take(o) != refs[i]]
+        check(not bad, f"{label}: outputs of clips {bad} differ from the host route")
+        for i, b in enumerate(backs):
+            pcm = read_wav(b)
+            os.remove(b)
+            check(np.array_equal(pcm[:, 0], clips[i][0]) and np.array_equal(pcm[:, 1], clips[i][1]),
+                  f"{label}: clip {i} decodes through the service to other PCM")
+
+    batchers = []
+    real_batcher = serve._PoolBatcher
+
+    class Recorded(real_batcher):
+        """The batcher, recorded; with ``hold`` set, a released file's finish
+        (tail, assembly, write) waits until no wave runs: a diagnostic that
+        keeps host work in Python off the interpreter lock while a wave
+        dispatches."""
+
+        hold = False
+
+        def __init__(self, *args, **kwargs):
+            self.idle = threading.Event()
+            self.idle.set()
+            super().__init__(*args, **kwargs)
+            batchers.append(self)
+
+        def _begin_wave(self, wave):
+            self.idle.clear()
+            super()._begin_wave(wave)
+
+        def _end_wave(self):
+            super()._end_wave()
+            self.idle.set()
+
+        def _finish(self, *args):
+            if self.hold:
+                self.idle.wait()
+            super()._finish(*args)
+
+    serve._PoolBatcher = Recorded  # restored at the end of the mixed batch
+    modes = {"pooled, --workers=4": ["--workers=4"], "--workers=4 --no-pool": ["--workers=4", "--no-pool"],
+             "--workers=1": ["--workers=1"], "pooled, finishes held": ["--workers=4"]}
+    runs = {name: [] for name in modes}
+    try:
+        for turn in range(2):
+            for name, argv in modes.items():
+                Recorded.hold = name.endswith("held")
+                script, outs, backs = clip_script(f"t{turn}-", decode=turn == 0)
+                wire = Wire()
+                with Counted(batches) as c, WaveLog() as waves:
+                    rc, _, peak = timed_on_card(lambda: serve.serve(argv, stdin=io.StringIO(script), stdout=wire,
+                                                                    device="cuda"))
+                check(rc == 0, f"service, {name}: exit code {rc}")
+                got = answered(f"service, {name}", wire.lines, 2 * n + 2 if backs else n + 1)
+                check(all(r["ok"] for r in got.values()),
+                      f"service, {name}: a job failed: {[r for r in got.values() if not r['ok']][:3]}")
+                check_outputs(f"service, {name}", outs, backs)
+                check_accounting(f"service, {name}", shapes, c.plans, c.launches)
+                pooled = name.startswith("pooled")
+                check(bool(waves.walls) == pooled, f"service, {name}: waves {waves.text()}")
+                runs[name].append({"wait_s": at_id(wire.lines, n + 1), "peak": peak, "c": c, "waves": waves.walls,
+                                   "first_ms": got[1]["ms"]})
+    except BaseException:
+        serve._PoolBatcher = real_batcher
+        raise
+    Recorded.hold = False
+    pooled = runs["pooled, --workers=4"]
+    check(all(v > 0 for v in pooled[0]["c"].launches.values()), f"service: a kernel never launched: {pooled[0]['c'].launches}")
+    print(f"service in this process ({n} clips, {frames} frames, encodes then wait; decodes through the service "
+          f"PCM-exact on the first turn; every output == host route; every id answered once; no wave failed):")
+    for name, turns in runs.items():
+        r0, r1 = turns
+        print(f"  {name:22s} {r0['wait_s']:.3f} s first, {r1['wait_s']:.3f} s second = {frames / r1['wait_s']:,.0f} "
+              f"frames/s; first job {r0['first_ms']:.1f} / {r1['first_ms']:.1f} ms; {r1['c'].plans['full']} full-width "
+              f"and {r1['c'].plans['probe']} probe plans; peak device memory {gib(r0['peak'])} / {gib(r1['peak'])}")
+        for r in turns:
+            if r["waves"]:
+                print(f"    waves: {', '.join(f'{b} blocks {s:.3f} s' for b, s in r['waves'])}")
+    print(f"  encode_pooled in phase 6: {batch['pooled_s']:.3f} s, waves "
+          f"{', '.join(f'{b} blocks {s:.3f} s' for b, s in batch['pooled_waves'])}; file by file {batch['file_by_file_s']:.3f} s")
+
+    # a mixed batch: keys of their own, the per-job path, the host route and the streaming route
+    (mono, mono_ref), ((hl, hr), hires_ref) = batch["mono"], batch["hires"]
+    long_wav, long_ref = long_file
+    sub = next(i for i, (l, _) in enumerate(clips) if len(l) < BLOCK)
+    mono_wav, hires_wav = os.path.join(d, "mono.wav"), os.path.join(d, "hires.wav")
+    check(write_wav_port(mono_wav, mono, np.empty(0, np.int32), 1, CLIP_RATE, 16)
+          and write_wav_port(hires_wav, hl, hr, 2, 96000, 24), "service: mixed batch WAV write failed")
+    lr_ref = FrameEncoder(12, 0, CLIP_RATE, 16, device="cuda").encode_frame(*clips[4])
+    jobs = [(mono_wav, mono_ref, []), (hires_wav, hires_ref, []), (wavs[2], refs[2], []), (wavs[3], refs[3], []),
+            (wavs[1], refs[1], ["--debug-threads"]), (wavs[sub], refs[sub], []), (long_wav, long_ref, []),
+            (wavs[4], lr_ref, ["--stereo-mode=lr"])]
+    outs = [os.path.join(d, f"mixed{i}.lac") for i in range(len(jobs))]
+    script = "".join(" ".join(["encode", w, o, *flags]) + "\n" for (w, _, flags), o in zip(jobs, outs)) + "wait\n"
+    streamed = []
+    real_stream = stream.encode_wav_to_lac
+
+    def counted_stream(*args, **kwargs):
+        streamed.append(1)
+        return real_stream(*args, **kwargs)
+
+    stream.encode_wav_to_lac = counted_stream
+    try:
+        wire = Wire()
+        with Counted(batches) as c, WaveLog() as waves:
+            rc, wall, peak = timed_on_card(lambda: serve.serve(["--workers=4"], stdin=io.StringIO(script), stdout=wire,
+                                                               device="cuda"))
+    finally:
+        stream.encode_wav_to_lac = real_stream
+        serve._PoolBatcher = real_batcher
+    check(len(batchers) == 5 and all(b.wave_failures == 0 and not b.device_sick for b in batchers),
+          f"service: a pooled wave failed ({[b.wave_failures for b in batchers]})")
+    got = answered("service, mixed batch", wire.lines, len(jobs) + 1)
+    check(rc == 0 and all(r["ok"] for r in got.values()), f"service, mixed batch: {got}")
+    bad = [i for i, ((_, want, _), o) in enumerate(zip(jobs, outs)) if take(o) != want]
+    check(not bad, f"service, mixed batch: jobs {bad} differ from their references")
+    check("Thread usage: " in got[5]["message"], f"service, mixed batch: --debug-threads printed {got[5]}")
+    check(len(streamed) == 1, f"service, mixed batch: the streaming route ran {len(streamed)} times, want 1")
+    check(len(waves.walls) >= 4, f"service, mixed batch: want a wave per key (4), got {waves.text()}")
+    check_accounting("service, mixed batch", shapes, c.plans, c.launches)
+    print(f"service, mixed batch (mono, 96 kHz 24-bit, 16-bit auto and lr clips, --debug-threads, a clip without a "
+          f"full block, the 2,100-block WAV): every output == its reference, the long WAV streamed; {wall:.3f} s; "
+          f"waves {waves.text()}; peak device memory {gib(peak)}")
+
+    # fresh service processes: warm, not warm, and with nothing built
+    script, outs, _ = clip_script("child-")
+    stats = {}
+    for label, args in (("--warm", ["--warm"]), ("not warm", [])):
+        rc, lines, err, wall, rss = run_serve_child(["-m", "lac_tpu_torch.serve", "--workers=4", *args],
+                                                    script + "quit\n", n + 1 + bool(args))
+        check(rc == 0, f"service process, {label}: exit code {rc}\n{err[-4000:]}")
+        got = answered(f"service process, {label}", [(at, r) for at, r in lines if r["id"] != 0], n + 1)
+        check(all(r["ok"] for r in got.values()), f"service process, {label}: a job failed")
+        check_outputs(f"service process, {label}", outs)
+        warm_s = at_id(lines, 0) if args else None
+        check(not args or next(r for _, r in lines if r["id"] == 0)["ok"], f"service process, {label}: warm-up failed")
+        stats[label] = (warm_s, got[1]["ms"], at_id(lines, n + 1), wall, rss)
+    for label, (warm_s, first_ms, wait_s, wall, rss) in stats.items():
+        warm_txt = f"warm-up answered at {warm_s:.2f} s, " if warm_s is not None else ""
+        print(f"service process, --workers=4 {label}: {warm_txt}first job {first_ms:.1f} ms, wait answered at "
+              f"{wait_s:.2f} s ({frames / (wait_s - (warm_s or 0)):,.0f} frames/s after the warm-up), "
+              f"wall {wall:.2f} s, peak RSS {rss:.0f} MiB")
+
+    few = min(8, n)
+    script = "".join(f"encode {wavs[i]} {outs[i]}\n" for i in range(few)) + "wait\n"
+    script += f"decode {outs[0]} {os.path.join(d, 'cold-back.wav')}\nwait\nquit\n"
+    rc, lines, err, wall, rss = run_serve_child(["-c", COLD_SERVE_CHILD, os.path.join(tmp, "serve-build"),
+                                                 "--workers=4"], script, few + 3)
+    check(rc == 0 and "built in the service" in err, f"service with nothing built: exit code {rc}\n{err[-4000:]}")
+    got = answered("service with nothing built", lines, few + 3)
+    check(all(r["ok"] for r in got.values()), f"service with nothing built: a job failed: {got}")
+    check_outputs("service with nothing built", outs[:few], [os.path.join(d, "cold-back.wav")])
+    built = next(line for line in err.splitlines() if "built in the service" in line)
+    print(f"service with nothing built (g++ and nvcc inside the service, fresh process): every stdout line JSON, "
+          f"{few} clips == host route, decode PCM-exact; {built}; wall {wall:.2f} s, peak RSS {rss:.0f} MiB")
+
+    # the watchdog on a real wave: a deadline well under the largest wave's wall
+    longest = max(s for r in pooled for _, s in r["waves"])
+    timeout = f"{longest / 10:.3f}"
+    ref_lac = os.path.join(d, "wd-ref.lac")
+    with open(ref_lac, "wb") as f:
+        f.write(refs[0])
+    back = os.path.join(d, "wd-back.wav")
+    script, outs, _ = clip_script("wd-")
+    script += f"decode {ref_lac} {back}\nping\n"
+    rc, lines, err, wall, rss = run_serve_child(["-m", "lac_tpu_torch.serve", "--workers=4"], script, n + 3,
+                                                env={"LAC_TPU_SERVE_DEVICE_TIMEOUT_S": timeout},
+                                                linger_s=2 * longest + 5)
+    check(rc == 0, f"watchdog: the service exited with {rc}\n{err[-4000:]}")
+    got = answered("watchdog", lines, n + 3)
+    sick = [i for i in range(n) if not got[i + 1]["ok"]]
+    check(sick and all(got[i + 1]["rc"] == 1 and got[i + 1]["error"].startswith(f"device wave exceeded {float(timeout):g}s; ")
+                       and not os.path.exists(outs[i]) for i in sick),
+          f"watchdog: want sick-card errors and no output for the jobs not released: {[got[i + 1] for i in sick][:3]}")
+    check_outputs("watchdog", outs, skip=sick)
+    check(got[n + 2]["ok"] and got[n + 3] == {"id": n + 3, "ok": True, "pong": True}, "watchdog: decode or ping failed")
+    pcm = read_wav(back)
+    check(np.array_equal(pcm[:, 0], clips[0][0]) and np.array_equal(pcm[:, 1], clips[0][1]), "watchdog: decode differs")
+    check("device wave exceeded" in err, "watchdog: no stderr line")
+    print(f"watchdog (fresh process, deadline {timeout} s, a tenth of the longest wave): {n - len(sick)} jobs released "
+          f"before it fired (bytes == host route), {len(sick)} answered with the sick-card error and no output; decode "
+          f"PCM-exact and ping answered after it; exit 0, wall {wall:.2f} s, peak RSS {rss:.0f} MiB")
+    return pooled[0]["c"].launches
 
 
 def main():
@@ -890,9 +1256,13 @@ def main():
         check_goldens(tmp)
 
         # 6-8. many files, one long file, the cold CLI
-        by_path = {"files": launches, "pooled": check_batch_paths(tmp, shapes, batches),
-                   "stream": check_stream(tmp, shapes, batches)}
+        batch = check_batch_paths(tmp, shapes, batches)
+        stream_launches, long_wav, long_lac = check_stream(tmp, shapes, batches)
         check_cold_cli(tmp)
+
+        # 10. the service
+        by_path = {"files": launches, "pooled": batch["launches"], "stream": stream_launches,
+                   "serve": check_serve(tmp, shapes, batches, batch, (long_wav, long_lac))}
 
     # 9. the port stands alone
     check("jax" not in sys.modules, "jax was imported")
