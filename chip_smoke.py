@@ -64,7 +64,23 @@
     run inside the service while every stdout line stays JSON; the
     watchdog on a real wave in a fresh process (a deadline of a tenth of
     the longest wave: released jobs' bytes, the rest answered with the
-    sick-card error and no output, decode and ping still served, exit 0).
+    sick-card error and no output, decode and ping still served, exit 0);
+11. decode on the card (``FrameDecoder(backend="device")``): kernel 7, the
+    FIR/LPC restore, bit-exact against its plain version at the path's
+    shapes (the FIR/LPC lanes of the noise files below, timed beside its
+    bound and its estimated serial floor) and on adversarial lanes (every LPC order
+    1..32 so that every tap-bound template runs, FIR lanes, ragged valid
+    lengths, lanes that leave int32, 24-bit residuals); phase 4's seven
+    files and a 3-minute file of filtered noise through the device
+    backend, PCM-equal to the input and to the native decode (launches
+    per decode, warm walls of both backends, where a decode's time goes,
+    peak device memory); phase 6's clips through the device backend
+    beside the native ``decode_batch``; the goldens through all three
+    backends; ``decode_range`` on the 3-minute noise file, 20 seeded
+    ranges on every backend; a corrupt block named by the device
+    backend's error. The gliding sines of phase 4 code every lane with a
+    fixed predictor, so kernel 7's path shape is the 3-minute noise file
+    (476 of its 970 lanes FIR/LPC) and phase 4's 100 s of filtered noise.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -87,9 +103,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lac_tpu_torch import cli, device_pipeline, pool, serve, stream
+from lac_tpu_torch import cli, device_decode, device_pipeline, pool, serve, stream
 from lac_tpu_torch.batch import decode_batch, encode_batch
-from lac_tpu_torch.decoder import FrameDecoder
+from lac_tpu_torch.decoder import DecodeError, FrameDecoder
 from lac_tpu_torch.encoder import FrameEncoder
 from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
@@ -114,7 +130,11 @@ KERNELS = {  # name -> (source, the Pallas function it replaces)
     "prefix_max_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:319"),
     "suffix_min_i32": ("lac_tpu_torch/csrc/row_scan.cu", "lac_tpu/ops/pallas_kernels.py:325"),
     "k_after_stateful_fused": ("lac_tpu_torch/csrc/k_after.cu", "lac_tpu/ops/pallas_adapt.py:333"),
+    # port-added: replaces XLA code, a lax.scan, that eager torch cannot run as one launch
+    "recurrence_restore": ("lac_tpu_torch/csrc/restore.cu", "lac_tpu/ops/predictors.py:243 (lax.scan)"),
 }
+RESTORE = "recurrence_restore"
+ENCODE_KERNELS = tuple(name for name in KERNELS if name != RESTORE)  # the planner's six
 
 # Bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory;
 # 32-bit integer instructions at 132 SMs x 128 lanes x 1.98 GHz =
@@ -140,7 +160,23 @@ OPS_PER_ELEMENT = {
     "prefix_max_i32": 4,
     "suffix_min_i32": 4,
     "k_after_stateful_fused": 120,
+    # per restored sample, besides its taps: the residual from shared memory,
+    # the 64-bit shift (2), the prediction select (2), the 64-bit add (2),
+    # the int32 range test (3), the ok update (2), the select and the
+    # shared-memory store, the amortised tile load and store (2)
+    RESTORE: 16,
 }
+# kernel 7, per tap of a restored sample: the 32x32->64 multiply-add (2) and
+# the history move (1); the work counted is each lane's valid samples times
+# its own order, what the data needs
+OPS_PER_TAP = 3
+# kernel 7's serial floor: one step's dependent chain in csrc/restore.cu is the
+# newest tap's multiply-add, the 64-bit shift, the prediction select, the
+# 64-bit add (2), the int32 range test (2) and the select of the stored sample,
+# 8 dependent instructions at about 4 cycles each at the 1.98 GHz boost clock
+# (an estimate from the source, not a measurement)
+SERIAL_CYCLES_PER_STEP = 8 * 4
+SM_CLOCK_HZ = 1.98e9
 # one PyTorch call computing the same function, timed as a yardstick only
 LIBRARY_CALLS = {
     "cumsum_u32": lambda x: torch.cumsum(x, -1, dtype=torch.int32),
@@ -290,15 +326,17 @@ def as_values(name, out):
     return [conv(t) for t in outs]
 
 
-def bound(name, x, out):
+def bound(name, x, out, ops=None):
     """(bound_ms, bound_by): the larger of the bytes the function must
-    move (input read once, outputs written once) over the memory rate and
-    its integer instructions over the peak instruction rate."""
+    move (inputs read once, outputs written once) over the memory rate and
+    its integer instructions (``ops``, else OPS_PER_ELEMENT per element of
+    the first input) over the peak instruction rate."""
+    ins = x if isinstance(x, (tuple, list)) else (x,)
     outs = out if isinstance(out, (tuple, list)) else (out,)
     outs = list({o.data_ptr(): o for o in outs}.values())  # a result returned twice is written once
-    nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEMENT[name] * x.numel() / INT32_OPS_PER_S * 1e3
+    t_ops = (OPS_PER_ELEMENT[name] * ins[0].numel() if ops is None else ops) / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -469,7 +507,7 @@ def check_accounting(label, shapes, plans, counts):
     batches of a stretch they account for every counted launch. Returns
     the model (name -> launches, ms, ms over the bound)."""
     model = per_encode(shapes, plans)
-    check(all(model[k][0] == counts[k] for k in counts),
+    check(all(model[k][0] == counts[k] for k in model) and counts[RESTORE] == 0,
           f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
     check(counts["k_after_stateful_fused"] == plans["full"] and
           counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"],
@@ -614,9 +652,11 @@ def gib(nbytes):
 def check_kinds(audio, shapes, batches):
     """The ``kind`` branches of ``device_pipeline.analyze`` other than auto
     on gliding sines, a filtered-noise file (all at chunk width 256) and
-    the 30 s corpus (chunk width 64), bytes against the port's host route."""
+    the 30 s corpus (chunk width 64), bytes against the port's host route.
+    Returns [(label, frame, left, right)]."""
     left, right = audio[0][3]
     cut = 269 * BLOCK + 1234
+    out = []
     cases = [("mono, 3 min", 0, left, ()),
              ("forced ms, 100 s", 1, left[:cut], right[:cut]),
              ("forced lr, 100 s", 0, left[:cut], right[:cut]),
@@ -634,6 +674,8 @@ def check_kinds(audio, shapes, batches):
         print(f"{label}: {len(l) // BLOCK} full blocks, port bytes == host route, decode PCM-exact; "
               f"{c.plans['full']} full-width and {c.plans['probe']} probe plans; first encode {wall:.3f} s; "
               f"peak device memory {gib(peak)}")
+        out.append((label, got, l, np.asarray(r, np.int32)))
+    return out
 
 
 # ------------------------------------------------------------ many files
@@ -714,7 +756,7 @@ def check_batch_paths(tmp, shapes, batches):
     check(len(waves) >= 4 and waves[: len(waves) // 2] == waves[len(waves) // 2:] and sum(waves) == 2 * total
           and max(waves) <= pool._MAX_WAVE_BLOCKS, f"clip batch: want two or more waves under the cap, got {waves}")
     pooled = runs["pooled"][0][2]
-    check(all(v > 0 for v in pooled.launches.values()), f"clip batch: a kernel never launched: {pooled.launches}")
+    check(all(pooled.launches[k] > 0 for k in ENCODE_KERNELS), f"clip batch: a kernel never launched: {pooled.launches}")
     for name, turns in runs.items():
         for _, _, c in turns:
             check_accounting(f"clip batch, {name}", shapes, c.plans, c.launches)
@@ -805,7 +847,7 @@ def check_stream(tmp, shapes, batches):
                 rc, wall, peak = timed_on_card(lambda: cli.main(["encode", wav, lac]))
             os.environ.pop("LAC_TPU_STREAM_BLOCKS", None)
             check(rc == 0 and read(lac) == mem, f"long file, {route} route of the CLI: bytes differ from the in-memory encode")
-            check(all(v > 0 for v in c.launches.values()), f"long file, {route} route: a kernel never launched")
+            check(all(c.launches[k] > 0 for k in ENCODE_KERNELS), f"long file, {route} route: a kernel never launched")
             check_accounting(f"long file, {route} route", shapes, c.plans, c.launches)
             walls[route].append((wall, peak, c))
     finally:
@@ -1032,7 +1074,8 @@ def check_serve(tmp, shapes, batches, batch, long_file):
         raise
     Recorded.hold = False
     pooled = runs["pooled, --workers=4"]
-    check(all(v > 0 for v in pooled[0]["c"].launches.values()), f"service: a kernel never launched: {pooled[0]['c'].launches}")
+    check(all(pooled[0]["c"].launches[k] > 0 for k in ENCODE_KERNELS),
+          f"service: a kernel never launched: {pooled[0]['c'].launches}")
     print(f"service in this process ({n} clips, {frames} frames, encodes then wait; decodes through the service "
           f"PCM-exact on the first turn; every output == host route; every id answered once; no wave failed):")
     for name, turns in runs.items():
@@ -1149,10 +1192,239 @@ def check_serve(tmp, shapes, batches, batch, long_file):
           f"PCM-exact and ping answered after it; exit 0, wall {wall:.2f} s, peak RSS {rss:.0f} MiB")
     return pooled[0]["c"].launches
 
+# ------------------------------------------------------------ decode on the card
+
+
+def restore_operands(frame):
+    """Kernel 7's operands for a v3 frame's FIR/LPC lanes, as the device
+    backend builds them: (res, coeffs, order, shift, min_pred_n, valid_len)."""
+    dec = FrameDecoder()
+    hdr, br, payload, sizes, psizes = dec._parse_frame(frame)
+    sizes = np.asarray(sizes)
+    res, ptype, order, coeffs, _, soffs = device_decode.tokenize(
+        hdr, sizes, np.asarray(psizes), dec._v3_payload(br, payload, psizes), int(sizes.sum()))
+    _, recur = device_decode.lane_operands(res, sizes, soffs, ptype, order, coeffs)
+    return recur[1:]
+
+
+def q15_taps(rng, order, stable):
+    """Taps 1..order of a 33-wide row: contractive (sum |c| < 0.9 * 2^15) or any int16."""
+    c = np.zeros(33, np.int32)
+    a = int(0.9 * (1 << 15) / order) if stable else (1 << 15) - 1
+    c[1 : order + 1] = rng.randint(-a, a + 1, order)
+    return c
+
+
+def adversarial_restore_lanes(L, rng):
+    """Kernel 7's operands: five warps of LPC lanes whose orders lie in one
+    tap-bound band each (1-4, 5-8, 9-12, 13-16, 17-32: every template runs,
+    every order 1..32 is there), half with contractive taps and half with
+    any int16 taps, 24-bit residuals in every seventh lane, valid lengths
+    L, the order, 1, 0 and L - 5; a warp of FIR lanes with ragged lengths;
+    lanes that leave int32 at sample 3, L / 2 and L - 1 and one that doubles
+    every step; and five more lanes, so the last warp is ragged."""
+    lanes = []
+    for lo, hi in ((1, 4), (5, 8), (9, 12), (13, 16), (17, 32)):
+        for j in range(32):
+            od = lo + j % (hi - lo + 1)
+            scale = 1 << 23 if j % 7 == 3 else 3000
+            lanes.append((rng.randint(-scale, scale, L), q15_taps(rng, od, j % 2 == 0), od, 15, 0,
+                          (L, L, od, 1, 0, L - 5, L)[j % 7]))
+    fir = np.zeros(33, np.int32)
+    fir[1:3] = (3, -1)
+    for j in range(32):
+        lanes.append((rng.randint(-30000, 30000, L), fir, 2, 2, 2, (L, 1, 2, 0, L - 3)[j % 5]))
+    step = np.zeros(33, np.int32)
+    step[1] = 1 << 15  # x[n] = x[n - 1] + r[n]
+    for at in (3, L // 2, L - 1):
+        res = np.zeros(L, np.int64)
+        res[0], res[at] = 1, (1 << 31) - 1
+        lanes.append((res, step, 1, 15, 0, L))
+    res = np.zeros(L, np.int64)
+    res[0] = 1 << 24
+    lanes.append((res, step * 2, 1, 15, 0, L))  # x[n] = 2 x[n - 1]
+    for od in (3, 9, 14, 21, 32):
+        lanes.append((rng.randint(-3000, 3000, L), q15_taps(rng, od, True), od, 15, 0, L))
+    res, cs, od, sh, mp, nv = (np.asarray(v) for v in zip(*lanes))
+    return res.astype(np.int32), cs.astype(np.int32), *(v.astype(np.int32) for v in (od, sh, mp, nv))
+
+
+def check_restore(files, rng):
+    """Kernel 7 bit-exact against its plain version (every lane's samples and
+    ok flag) at the path's shapes, the FIR/LPC lanes of each of ``files``
+    [(label, frame)], and on adversarial lanes; the path's shapes timed
+    (CUDA graph of 20 launches between CUDA events; the plain version once,
+    without a graph, as it is a loop of L steps) beside the bound and the
+    serial floor (an estimate from the source: printed, not in the record).
+    Returns the kernel record (the first file's lanes)."""
+    cases = [(f"{label}: FIR/LPC lanes", restore_operands(frame), True) for label, frame in files]
+    cases += [("adversarial lanes at L = 4096", adversarial_restore_lanes(4096, rng), False),
+             ("adversarial lanes at L = 1001", adversarial_restore_lanes(1001, rng), False)]
+    err, shapes = 0, []  # the timed shapes, the record's first
+    for label, ops, timed in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in ops]
+        t[1] = t[1].to(torch.int32)  # the wrapper then converts nothing: the graph holds kernel 7 alone
+        (got, ok), (want, w_ok) = K.recurrence_restore(*t), K.recurrence_restore_plain(*t)
+        torch.cuda.synchronize()
+        lanes, L = t[0].shape
+        check(torch.equal(ok, w_ok), f"{RESTORE} {label}: ok flags differ from the plain version")
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
+        check(err == 0, f"{RESTORE} {label}: kernel differs from its plain version (max |diff| {err})")
+        order, valid = ops[2], np.minimum(ops[5], L)
+        bands = sorted({next(h for h in K.TAP_BOUNDS if h >= int(order[w : w + 32].max()))
+                        for w in range(0, lanes, 32)})
+        print(f"  {RESTORE:22s} {label} ({lanes}, {L}): exact on every lane; {int((~ok).sum())} lanes rejected; "
+              f"tap bounds {bands}")
+        if not timed:
+            check(bands == list(K.TAP_BOUNDS) and 0 < int((~ok).sum()) < lanes, f"{label}: want every template run "
+                  f"and some rejected lanes")
+            continue
+        check(bool(ok.all()), f"{label}: a lane of a real file was rejected")
+        kern = lambda _: K.recurrence_restore(*t)  # noqa: E731
+        ms = min(time_ms(kern, None), time_ms(kern, None))
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        K.recurrence_restore_plain(*t)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        ops_count = int((valid.astype(np.int64) * (OPS_PER_ELEMENT[RESTORE] + OPS_PER_TAP * order)).sum())
+        bound_ms, bound_by = bound(RESTORE, t, (got, ok), ops=ops_count)
+        floor_ms = L * SERIAL_CYCLES_PER_STEP / SM_CLOCK_HZ * 1e3  # an estimate, printed only
+        shapes.append({"label": label, "lanes": lanes, "L": L, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one call, no graph), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; serial floor {floor_ms:.4f} ms "
+              f"({L} steps x {SERIAL_CYCLES_PER_STEP} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz, estimated from the "
+              f"source), {100 * floor_ms / ms:.0f}% of it (CUDA graph of 20 launches, CUDA events)")
+    return {"max_abs_err": float(err), "library_ms": None,
+            **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def decode_breakdown(dec, frame):
+    """Where a warm device-backend decode of ``frame`` spends its wall: the
+    steps of ``dec.decode``'s v3 device route called one by one and each
+    timed where it runs (host clock, the card synchronised after each),
+    beside the wall of one whole ``dec.decode(frame)``."""
+    steps = {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = time.perf_counter() - t0
+        return out
+
+    def parse():
+        hdr, br, payload, sizes, psizes = dec._parse_frame(frame)
+        return hdr, np.asarray(sizes), np.asarray(psizes), dec._v3_payload(br, payload, psizes)
+
+    hdr, sizes, psizes, body = step("frame parse (host)", parse)
+    res, ptype, order, coeffs, msflag, offs = step(
+        "tokenize (native, host threads)", lambda: device_decode.tokenize(hdr, sizes, psizes, body, int(sizes.sum())))
+    lanes = step("lane gather (numpy)", lambda: device_decode.lane_operands(res, sizes, offs, ptype, order, coeffs))
+    restored = step("restore: uploads, masked cumsums and kernel 7 on the card, int32 copies back",
+                    lambda: device_decode.restore_lanes(*lanes, dec.device))
+    planes = step("scatter (numpy)", lambda: device_decode.scatter(res, sizes, offs, restored))
+    step("mid/side inverse, PCM range check (numpy)", lambda: device_decode.finish(hdr, planes, sizes, msflag))
+    _, wall, _ = timed_on_card(lambda: dec.decode(frame))
+    return steps, wall
+
+
+def check_decode(files, batch, batches):
+    """The device decode backend on phase 4's files, phase 6's clips, the
+    goldens, ``decode_range`` and a corrupt block. Returns the launches of
+    the device decodes of phase 4's files (the decode path)."""
+    device, native_dec = FrameDecoder(backend="device"), FrameDecoder()
+
+    def equal(got, left, right):
+        return np.array_equal(got[0], left) and np.array_equal(got[1], right)
+
+    with Counted(batches) as path:
+        per_file = []
+        for label, frame, left, right in files:
+            before = K.launches[RESTORE]
+            got, wall, peak = timed_on_card(lambda: device.decode(frame))
+            check(equal(got, left, right), f"device decode, {label}: PCM differs from the input")
+            per_file.append((K.launches[RESTORE] - before, wall, peak))
+    check(path.launches[RESTORE] > 0 and all(path.launches[k] == 0 for k in ENCODE_KERNELS),
+          f"device decode: want kernel 7 and no planner kernel, got {path.launches}")
+    print(f"device decode ({len(files)} files, PCM-equal to the input and to the native decode; walls of the second "
+          f"pass, native then device; frames/s):")
+    for (label, frame, left, right), (n, first_s, peak) in zip(files, per_file):
+        walls = {}
+        for name, dec in (("native", native_dec), ("device", device), ("device", device), ("native", native_dec)):
+            got, wall, _ = timed_on_card(lambda: dec.decode(frame))
+            check(equal(got, left, right), f"{name} decode, {label}: PCM differs from the input")
+            walls.setdefault(name, []).append(wall)
+        nat, dev = min(walls["native"]), min(walls["device"])
+        print(f"  {label:44s} {len(left)} frames: native {nat:.3f} s = {len(left) / nat:,.0f} frames/s, device "
+              f"{dev:.3f} s = {len(left) / dev:,.0f} frames/s (first {first_s:.3f} s), device/native {dev / nat:.2f}; "
+              f"kernel 7 launches {n}; peak device memory {gib(peak)}")
+    steps, wall = decode_breakdown(device, files[0][1])
+    print(f"  where a warm device decode of the {files[0][0]} goes (each step alone, host clock, card synchronised "
+          f"after each): " + "; ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+          + f"; sum {sum(steps.values()):.3f} s, one whole decode {wall:.3f} s")
+
+    # the clip batch
+    clips, refs, frames = batch["clips"], batch["refs"], batch["frames"]
+    walls = {"native decode_batch": [], "device, file by file": []}
+    for turn in range(2):
+        got, wall, peak = timed_on_card(lambda: decode_batch(refs))
+        check(all(equal(g, l, r) for g, (l, r) in zip(got, clips)), "clip batch: native decode_batch differs")
+        walls["native decode_batch"].append(wall)
+        with Counted(batches) as c:
+            got, wall, peak = timed_on_card(lambda: [device.decode(f) for f in refs])
+        check(all(equal(g, l, r) for g, (l, r) in zip(got, clips)), "clip batch: a device decode differs")
+        walls["device, file by file"].append(wall)
+    print(f"clip batch through the device backend: {len(clips)} clips PCM-exact; kernel 7 launches {c.launches[RESTORE]}; "
+          f"peak device memory {gib(peak)}; "
+          + "; ".join(f"{k} {w[0]:.3f} s first, {w[1]:.3f} s second = {frames / w[1]:,.0f} frames/s"
+                      for k, w in walls.items()))
+
+    # the goldens through all three backends
+    decoders = {"native": native_dec, "python": FrameDecoder(backend="python"), "device": device}
+    signals = golden_cases()
+    for name, (left, right, *_) in sorted(signals.items()):
+        frame = (REPO / "tests" / "golden" / f"{name}.lac").read_bytes()
+        for backend, dec in decoders.items():
+            check(equal(dec.decode(frame), left, right), f"golden {name}: the {backend} backend's PCM differs")
+    print(f"goldens: {len(signals)} decode PCM-exact through the native, python and device backends")
+
+    # decode_range on the 3-minute file of filtered noise
+    label, frame, left, right = files[0]
+    rng = np.random.RandomState(81)
+    edges = rng.choice(np.arange(BLOCK, len(left), BLOCK), 20, replace=False)
+    ranges = [(int(e) - int(a), min(int(a + b), len(left) - int(e) + int(a)))
+              for e, (a, b) in zip(edges, rng.randint(1, 4000, (20, 2)))]
+    for backend, dec in decoders.items():
+        t0 = time.perf_counter()
+        for start, count in ranges:
+            got = dec.decode_range(frame, start, count)
+            check(equal(got, left[start : start + count], right[start : start + count]),
+                  f"decode_range [{start}, {start + count}), {backend} backend: differs from the slice")
+        print(f"decode_range, {label}: 20 seeded ranges across block edges, {backend} backend == slices of the "
+              f"full decode ({time.perf_counter() - t0:.2f} s)")
+
+    # a corrupt block is named by the device backend's error
+    hdr, br, payload, sizes, psizes = native_dec._parse_frame(frame)
+    bad = len(sizes) // 2
+    at = len(frame) - sum(psizes) + sum(psizes[:bad]) + 1  # after the stereo flag: the predictor type, now > 2
+    corrupt = bytearray(frame)
+    corrupt[at] ^= 0xFF
+    try:
+        device.decode(bytes(corrupt))
+        raise RuntimeError(f"chip_smoke: device decode accepted a corrupt block {bad}")
+    except DecodeError as e:
+        check(str(e) == f"[decode-error] block={bad}", f"device decode of a corrupt block {bad}: {e}")
+        print(f"corrupt stream: the device backend raises DecodeError('{e}')")
+    return path.launches
+
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    t_start = time.perf_counter()
 
     # 1. device and host
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1182,6 +1454,7 @@ def main():
     print("kernels vs plain versions (bit-exact):")
     records, shapes = check_kernels(rng)
     check_argmin_ties(rng)
+    restore_rng = np.random.RandomState(20261017)  # phase 11's kernel inputs, apart from the others' stream
 
     # 4. real-size encodes through the port's main path, held to the port's host route
     audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
@@ -1218,7 +1491,7 @@ def main():
     launches = dict(K.launches)
     full, probe = batches.get(BLOCK, 0), batches.get(256, 0)
     print(f"main path: {full} full-width and {probe} probe plan batches; launches {launches}")
-    check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+    check(all(launches[k] > 0 for k in ENCODE_KERNELS), f"a kernel of the path never launched: {launches}")
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
           "kernels 2 and 3 must run only on probe plan batches")
@@ -1250,7 +1523,7 @@ def main():
                   f"encode {first_s:.3f} s first, {warm_s:.3f} s second = {len(left) / warm_s:,.0f} frames/s; "
                   f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
 
-        check_kinds(audio, shapes, batches)
+        kinds = check_kinds(audio, shapes, batches)
 
         # 5. the goldens (all under 8 full blocks: the host route against the reference binary's bytes)
         check_goldens(tmp)
@@ -1264,13 +1537,27 @@ def main():
         by_path = {"files": launches, "pooled": batch["launches"], "stream": stream_launches,
                    "serve": check_serve(tmp, shapes, batches, batch, (long_wav, long_lac))}
 
+        # 11. decode on the card: phase 4's files, and a 3-minute file whose lanes are half FIR/LPC
+        # (the gliding sines code every lane with a fixed predictor: kernel 7 has nothing to do there)
+        t11 = time.perf_counter()
+        noise = filtered_noise_stereo(FILES[0][3], 44100, 16, 4)
+        files = [("3 min 44.1 kHz 16-bit stereo filtered noise",
+                  FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(*noise), *noise)]
+        files += [(label, ref, left, right) for (label, _, _, (left, right)), ref in zip(audio, refs)] + kinds
+        print("kernel 7 vs its plain version (bit-exact):")
+        records[RESTORE] = check_restore([f[:2] for f in files if "noise" in f[0]], restore_rng)
+        by_path["decode"] = check_decode(files, batch, batches)
+        print(f"phase 11 (decode on the card): {time.perf_counter() - t11:.1f} s")
+
     # 9. the port stands alone
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m == "lac_tpu" or m.startswith("lac_tpu."))
     check(not ref_mods, f"lac_tpu modules were imported: {ref_mods}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": launches[name], "launches_by_path": {path: n[name] for path, n in by_path.items()},
+         "launches": by_path["decode" if name == RESTORE else "files"][name],  # each kernel's own path
+         "launches_by_path": {path: n[name] for path, n in by_path.items()},
          **records[name]} for name in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

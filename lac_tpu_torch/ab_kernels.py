@@ -1,39 +1,56 @@
-"""Time kernels 1-5 (csrc/kcost.cu, csrc/row_scan.cu) against other sources of them on one card, in turns.
+"""Time the port's kernels against other sources of them on one card, in turns.
 
     python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU]
+        [--k-after OTHER_K_AFTER_CU] [--restore OTHER_RESTORE_CU ...] [--sass DIR]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.
-Each ``OTHER_*`` is another version of that source, for example the
-parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists. The script builds this tree's source and the other
-one, each alone into its own shared library with the port's nvcc flags,
-all in parallel, prints every kernel's ptxas report (registers, spill,
-shared memory), holds every timed call bit-exact against the plain
-version, and times in turns (other, this, ..., this, other; a CUDA graph
-of 20 launches between CUDA events, as chip_smoke.py times) beside
-chip_smoke.py's bound, under the card's name and power limit.
+Each ``OTHER_*`` is another version of that source with the same C
+entries, for example the parent commit's, unpacked with ``git archive``
+into a directory that ``.gitignore`` lists. For each option given, the
+script builds this tree's source and the other ones, each alone into its
+own shared library with the port's nvcc flags, all in parallel, prints
+every kernel's ptxas report (registers, spill, shared memory) and, for
+kernels 6 and 7, the SASS instruction count (``cuobjdump -sass``, NOPs
+left out; ``--sass DIR`` writes each library's SASS there), holds every
+timed call bit-exact against the plain version, and times in turns (the
+sources in order, then in reverse; a CUDA graph of 20 launches between
+CUDA events, as chip_smoke.py times) beside chip_smoke.py's bound, under
+the card's name and power limit.
 
-``--row-scan``: the four scans at the probe shapes (33792, 256) and
-(3072, 256), at 512, 1024 and 2048 samples a row, and at (2816, 16384);
-this tree's source is also built with ``-DLAC_SCAN_SHORT_MAX=256`` and
-``=1024`` (where the warp-per-row kernel hands over to the tile kernel),
-and ``torch.cumsum`` / ``torch.cummax`` are timed in the same turns.
+``--row-scan`` (kernels 2-5): the four scans at the probe shapes (33792,
+256) and (3072, 256), at 512, 1024 and 2048 samples a row, and at (2816,
+16384); this tree's source is also built with ``-DLAC_SCAN_SHORT_MAX=256``
+and ``=1024`` (where the warp-per-row kernel hands over to the tile
+kernel), and ``torch.cumsum`` / ``torch.cummax`` are timed in the same
+turns.
 
-``--kcost``: this tree's source is also built with its build-time
-choices set otherwise (``KCOST_VARIANTS``); the row sums at the shapes both sources take (an older
-source has no ``head`` argument and no partition entry: it is called
-through its five-argument entry), then one plan's worth of k-cost work
-three ways: the other source's launches (head and row apart, every
-partition order apart, as the planner called an older source), this
-source with one launch per partition order (head and row sums together),
-and this source's two launches (candidate stack; winners, every order
-from one read).
+``--kcost`` (kernel 1): this tree's source is also built with its
+build-time choices set otherwise (``KCOST_VARIANTS``); the row sums at the
+shapes both sources take (an older source has no ``head`` argument and no
+partition entry: it is called through its five-argument entry), then one
+plan's worth of k-cost work three ways: the other source's launches (head
+and row apart, every partition order apart, as the planner called an
+older source), this source with one launch per partition order (head and
+row sums together), and this source's two launches (candidate stack;
+winners, every order from one read).
+
+``--k-after`` (kernel 6): at (2816, 16384) on chip_smoke.py's kernel-6
+rows (adversarial, near-threshold and window-, warp- and tile-edge rows)
+and on audio-like codes (geometric, mean 1000).
+
+``--restore`` (kernel 7): on the FIR/LPC lanes of chip_smoke.py's
+3-minute filtered-noise file, on chip_smoke.py's adversarial lanes, and on
+the same file's residuals with every lane at one order (4, 8, 12, 16 and
+32: one tap-bound template each), beside chip_smoke.py's estimated serial
+floor and with the cycles one restored sample takes at the 1.98 GHz boost
+clock.
 """
 
 import argparse
 import ctypes
 import os
 import pathlib
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
@@ -44,6 +61,7 @@ from .ops import _cuda_lib
 from .ops import cuda_kernels as K
 
 LANES, BLOCK = 256, 16384
+K_AFTER_ROWS = 2816  # kernel 6's plan batch: 256 lanes x 11 candidates
 # build-time choices of csrc/kcost.cu timed beside its defaults
 KCOST_VARIANTS = (("-DLAC_KCOST_UNROLL=4",), ("-DLAC_KCOST_TREE_BLOCK=1024",))
 CSRC = pathlib.Path(_cuda_lib.__file__).parent.parent / "csrc"
@@ -69,6 +87,39 @@ def _build(src, out, defines=()):
         elif "Used" in line and "registers" in line:
             report.append(f"    {name}: {line.split('ptxas info    :')[-1].strip()}; {spill}")
     return "\n".join(report)
+
+
+def _sass_count(lib, kernel):
+    """Instructions of ``kernel`` in ``lib`` (NOPs left out), or None without cuobjdump."""
+    tool = os.path.join(os.path.dirname(_cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    for fn in sass.split("Function :")[1:]:
+        if kernel in fn.splitlines()[0]:
+            ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn, re.M)
+            return sum(1 for op in ops if not op.strip().startswith("NOP"))
+    raise RuntimeError(f"no {kernel} in the SASS of {lib}")
+
+
+def _build_all(tag, builds, out_dir, sass_dir, kernel=None):
+    """Build every side {side: (source, defines)} alone, in parallel, and
+    print each one's ptxas lines (and the SASS instruction count of
+    ``kernel``); with ``sass_dir``, write each library's SASS there.
+    Returns {side: library path}."""
+    libs = {side: out_dir / f"{tag}_{i}.so" for i, side in enumerate(builds)}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        logs = list(ex.map(lambda side: _build(builds[side][0], libs[side], builds[side][1]), builds))
+    for side, log in zip(builds, logs):
+        print(f"{tag}, {side}: {builds[side][0]} {' '.join(builds[side][1])}\n{log}")
+        if kernel:
+            print(f"    SASS instructions of {kernel}: {_sass_count(libs[side], kernel)}")
+        if sass_dir:
+            sass_dir.mkdir(parents=True, exist_ok=True)
+            tool = os.path.join(os.path.dirname(_cuda_lib._nvcc()), "cuobjdump")
+            sass = subprocess.run([tool, "-sass", str(libs[side])], capture_output=True, text=True, check=True)
+            (sass_dir / f"{tag}_{libs[side].stem}.sass").write_text(sass.stdout)
+    return libs
 
 
 def _bind(lib, name, kinds):
@@ -162,15 +213,11 @@ def _turns(chip_smoke, label, x, sides, want, bound_ms, extra=""):
     return {name: min(v) for name, v in t.items()}
 
 
-def ab_row_scan(chip_smoke, other, out_dir, rng):
+def ab_row_scan(chip_smoke, other, out_dir, rng, sass_dir):
     builds = {"other": (other, ()), "this": (CSRC / "row_scan.cu", ()),
               "this, short <= 256": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=256",)),
               "this, short <= 1024": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=1024",))}
-    libs = {side: out_dir / f"row_scan_{i}.so" for i, side in enumerate(builds)}
-    with ThreadPoolExecutor(len(builds)) as ex:
-        logs = list(ex.map(lambda side: _build(builds[side][0], libs[side], builds[side][1]), builds))
-    for side, log in zip(builds, logs):
-        print(f"row_scan, {side}: {builds[side][0]} {' '.join(builds[side][1])}\n{log}")
+    libs = _build_all("row_scan", builds, out_dir, sass_dir)
     entries = {side: _scan_entries(lib) for side, lib in libs.items()}
     library = {"cumsum_u32": lambda x: torch.cumsum(x, -1, dtype=torch.int32),
                "prefix_max_i32": lambda x: torch.cummax(x, -1).values}
@@ -195,15 +242,11 @@ def ab_row_scan(chip_smoke, other, out_dir, rng):
                        chip_smoke.bound(name, x, want)[0])
 
 
-def ab_kcost(chip_smoke, other, out_dir, rng):
+def ab_kcost(chip_smoke, other, out_dir, rng, sass_dir):
     this = CSRC / "kcost.cu"
     builds = {"other": (other, ()), "this": (this, ())}
     builds.update({f"this, {' '.join(d)}": (this, d) for d in KCOST_VARIANTS})
-    libs = {side: out_dir / f"kcost_{i}.so" for i, side in enumerate(builds)}
-    with ThreadPoolExecutor(len(builds)) as ex:
-        logs = list(ex.map(lambda side: _build(builds[side][0], libs[side], builds[side][1]), builds))
-    for side, log in zip(builds, logs):
-        print(f"kcost, {side}: {builds[side][0]}\n{log}")
+    libs = _build_all("kcost", builds, out_dir, sass_dir)
     entries = {side: _kcost_entries(lib) for side, lib in libs.items()}
     (o_sums, o_part), (t_sums, t_part) = entries["other"], entries["this"]
     row_sums = {side: e[0] for side, e in entries.items()}
@@ -268,10 +311,82 @@ def ab_kcost(chip_smoke, other, out_dir, rng):
                extra="; launches " + ", ".join(f"{k}: {v}" for k, v in counts.items()))
 
 
+def ab_k_after(chip_smoke, other, out_dir, rng, sass_dir):
+    libs = _build_all("k_after", {"other": (other, ()), "this": (CSRC / "k_after.cu", ())}, out_dir, sass_dir,
+                      "k_after_kernel")
+
+    def entry(path):
+        fn = _bind(ctypes.CDLL(str(path)), "lac_k_after_stateful", "piip")
+
+        def run(x):
+            out = torch.empty_like(x)
+            fn(x, x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr())
+            return out
+
+        return run
+
+    sides = {side: entry(lib) for side, lib in libs.items()}
+    inputs = {"kernel-6 rows": chip_smoke.k_after_codes(K_AFTER_ROWS, BLOCK, rng),
+              "audio-like codes": rng.geometric(1e-3, (K_AFTER_ROWS, BLOCK)).astype(np.uint32).view(np.int32)}
+    for label, codes in inputs.items():
+        x = torch.from_numpy(codes).cuda()
+        want = K.k_after_stateful_fused_plain(x)
+        _turns(chip_smoke, f"{label} ({K_AFTER_ROWS}, {BLOCK})", x, sides, want,
+               chip_smoke.bound("k_after_stateful_fused", x, want)[0])
+
+
+def ab_restore(chip_smoke, others, out_dir, rng, sass_dir):
+    from .encoder import FrameEncoder
+    from .profile_encode import filtered_noise_stereo
+
+    builds = {"this": (CSRC / "restore.cu", ())}
+    builds.update((f"other{i}", (src, ())) for i, src in enumerate(others, 1))
+    libs = _build_all("restore", builds, out_dir, sass_dir, "restore_kernel")
+
+    def entry(path):
+        fn = _bind(ctypes.CDLL(str(path)), "lac_recurrence_restore", "ppppppiipp")
+
+        def run(t):
+            res = t[0]
+            out = torch.empty(res.shape, dtype=torch.int32, device=res.device)
+            ok = torch.empty(res.shape[0], dtype=torch.bool, device=res.device)
+            fn(res, *(a.data_ptr() for a in t), res.shape[0], res.shape[1], out.data_ptr(), ok.data_ptr())
+            return out, ok
+
+        return run
+
+    sides = {side: entry(lib) for side, lib in libs.items()}
+    frame = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(*filtered_noise_stereo(7_938_000, 44100, 16, 4))
+    path = chip_smoke.restore_operands(frame)
+    inputs = {"3 min filtered noise, FIR/LPC lanes": path,
+              "adversarial lanes": chip_smoke.adversarial_restore_lanes(4096, rng)}
+    for h in K.TAP_BOUNDS:
+        res = path[0]
+        cs = np.stack([chip_smoke.q15_taps(rng, h, True) for _ in range(len(res))])
+        vec = np.full(len(res), h, np.int32)
+        inputs[f"the same residuals, every lane order {h}"] = (
+            res, cs, vec, np.full_like(vec, 15), np.zeros_like(vec), np.full_like(vec, res.shape[1]))
+    for label, ops in inputs.items():
+        t = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda() for a in ops)
+        want = K.recurrence_restore_plain(*t)
+        lanes, L = t[0].shape
+        valid = np.minimum(ops[5], L).astype(np.int64)
+        work = int((valid * (chip_smoke.OPS_PER_ELEMENT[chip_smoke.RESTORE] + chip_smoke.OPS_PER_TAP * ops[2])).sum())
+        floor_ms = L * chip_smoke.SERIAL_CYCLES_PER_STEP / chip_smoke.SM_CLOCK_HZ * 1e3
+        best = _turns(chip_smoke, f"{label} ({lanes}, {L})", t, sides, want,
+                      chip_smoke.bound(chip_smoke.RESTORE, t, want, ops=work)[0],
+                      extra=f"; serial floor {floor_ms:.4f} ms (an estimate from the source)")
+        print("    cycles per sample: " + ", ".join(f"{side} {ms * 1e-3 * chip_smoke.SM_CLOCK_HZ / L:.0f}"
+                                                     for side, ms in best.items()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kcost", type=pathlib.Path, help="the other kcost.cu")
     ap.add_argument("--row-scan", type=pathlib.Path, help="the other row_scan.cu")
+    ap.add_argument("--k-after", type=pathlib.Path, help="the other k_after.cu")
+    ap.add_argument("--restore", type=pathlib.Path, nargs="+", help="other restore.cu sources")
+    ap.add_argument("--sass", type=pathlib.Path, help="write each library's SASS into this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA card")
@@ -283,9 +398,13 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(20261016)
     if args.row_scan:
-        ab_row_scan(chip_smoke, args.row_scan.resolve(), out_dir, rng)
+        ab_row_scan(chip_smoke, args.row_scan.resolve(), out_dir, rng, args.sass)
     if args.kcost:
-        ab_kcost(chip_smoke, args.kcost.resolve(), out_dir, rng)
+        ab_kcost(chip_smoke, args.kcost.resolve(), out_dir, rng, args.sass)
+    if args.k_after:
+        ab_k_after(chip_smoke, args.k_after.resolve(), out_dir, rng, args.sass)
+    if args.restore:
+        ab_restore(chip_smoke, [src.resolve() for src in args.restore], out_dir, rng, args.sass)
 
 
 if __name__ == "__main__":

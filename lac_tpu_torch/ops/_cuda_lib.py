@@ -21,7 +21,7 @@ import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "kcost.cu", _PKG / "csrc" / "row_scan.cu", _PKG / "csrc" / "k_after.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in ("kcost.cu", "row_scan.cu", "k_after.cu", "restore.cu"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,6 +38,7 @@ _ENTRIES = {
     "lac_prefix_max_i32": ("p", "i", "i", "p"),
     "lac_suffix_min_i32": ("p", "i", "i", "p"),
     "lac_k_after_stateful": ("p", "i", "i", "p"),
+    "lac_recurrence_restore": ("p", "p", "p", "p", "p", "p", "i", "i", "p", "p"),
 }
 
 _lock = threading.Lock()

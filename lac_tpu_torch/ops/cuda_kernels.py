@@ -1,5 +1,7 @@
-"""The planner's six hand-written Hopper kernels, each beside its plain
-PyTorch version (lac_tpu/ops/pallas_kernels.py, lac_tpu/ops/pallas_adapt.py).
+"""The port's seven hand-written Hopper kernels, each beside its plain
+PyTorch version: the planner's six (lac_tpu/ops/pallas_kernels.py,
+lac_tpu/ops/pallas_adapt.py) and the device decode backend's FIR/LPC
+restore (the ``lax.scan`` of lac_tpu/ops/predictors.py:243).
 
 Codes travel as an ``int32`` view of the u32 bit pattern; sums wrap in
 u32 exactly as on the TPU (every sum on the planner's path is <= 2^30).
@@ -17,6 +19,7 @@ import threading
 
 import torch
 
+from ..format.constants import INT32_MAX, INT32_MIN
 from ._backend import U32_MASK, cummax, cummin_reverse, u32_from_bits
 
 launches = {
@@ -26,6 +29,7 @@ launches = {
     "prefix_max_i32": 0,
     "suffix_min_i32": 0,
     "k_after_stateful_fused": 0,
+    "recurrence_restore": 0,
 }
 
 
@@ -234,3 +238,94 @@ def k_after_stateful_fused(u32_rows):
     _launch("lac_k_after_stateful", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
     _count("k_after_stateful_fused")
     return out
+
+
+# ---------------------------------------------------------------- kernel 7
+# csrc/restore.cu; replaces the vmapped lax.scan of predictors.recurrence_restore
+# (lac_tpu/ops/predictors.py:243), XLA code that eager torch cannot run as one launch
+
+TAP_BOUNDS = (4, 8, 12, 16, 32)  # the kernel's templates; the JAX scan's static tap bounds
+MAX_ORDER = TAP_BOUNDS[-1]
+
+
+def _restore_operands(res, coeffs, order, shift, min_pred_n, valid_len):
+    """Validate kernel 7's operands; returns the per-lane vectors with
+    ``valid_len`` filled in (full rows when None)."""
+    if res.dtype != torch.int32 or res.dim() != 2:
+        raise TypeError(f"recurrence_restore: want 2-D int32 residuals, got {res.dtype} {tuple(res.shape)}")
+    lanes, _ = res.shape
+    if valid_len is None:
+        valid_len = torch.full((lanes,), res.shape[1], dtype=torch.int32, device=res.device)
+    vecs = (order, shift, min_pred_n, valid_len)
+    if coeffs.dim() != 2 or coeffs.shape[0] != lanes or coeffs.shape[1] < MAX_ORDER + 1 or any(
+            v.dim() != 1 or v.shape[0] != lanes for v in vecs):
+        raise ValueError(f"recurrence_restore: want coeffs ({lanes}, >= {MAX_ORDER + 1}) and four ({lanes},) "
+                         f"vectors, got {tuple(coeffs.shape)} and {[tuple(v.shape) for v in vecs]}")
+    for t in (coeffs, *vecs):
+        if t.dtype.is_floating_point or t.dtype.is_complex or t.dtype == torch.bool:
+            raise TypeError(f"recurrence_restore: want integer operands, got {t.dtype}")
+        if t.device != res.device:
+            raise ValueError(f"recurrence_restore: operands on {t.device} and {res.device}")
+    return vecs
+
+
+def recurrence_restore_plain(res, coeffs, order, shift, min_pred_n, valid_len=None):
+    """Kernel 7's plain version: a loop over samples, vectorized over lanes,
+    with the JAX step function's masks (predictors.py:290-301). H is the
+    smallest tap bound at or above the largest order, as predictors.py:281
+    picks it; a lane's history is the H samples before ``n`` of its own
+    output row, which starts H zeros early. Every value it keeps fits int32:
+    a restored sample outside int32 is replaced by its residual."""
+    order, shift, min_pred_n, valid_len = _restore_operands(res, coeffs, order, shift, min_pred_n, valid_len)
+    lanes, n = res.shape
+    dev = res.device
+    od, sh, mp, nv = (v.to(torch.int64) for v in (order, shift, min_pred_n, valid_len))
+    alive = (od >= 0) & (od <= MAX_ORDER) & (sh >= 0) & (sh < 64)
+    od, sh = torch.where(alive, od, 0), torch.where(alive, sh, 0)
+    H = next(h for h in TAP_BOUNDS if h >= (int(od.max()) if lanes else 0))
+    taps = torch.arange(H, device=dev)
+    # oldest first, to line up with the history window y[:, n : n + H]
+    c = torch.where(taps[None, :] < od[:, None], coeffs[:, 1 : H + 1].to(torch.int64), 0).flip(1)
+    idx = torch.arange(n, device=dev)
+    predicts = idx[None, :] >= mp[:, None]
+    in_block = idx[None, :] < nv[:, None]
+    y = torch.zeros((lanes, H + n), dtype=torch.int64, device=dev)
+    y[:, H:] = res
+    for i in range(n):
+        r = y[:, H + i]  # read before the column is overwritten below
+        s = r + torch.where(predicts[:, i], (y[:, i : i + H] * c).sum(dim=-1) >> sh, 0)
+        active = alive & in_block[:, i]
+        take = active & (s >= INT32_MIN) & (s <= INT32_MAX)
+        alive = alive & (take | ~active)
+        y[:, H + i] = torch.where(take, s, r)
+    return y[:, H:].to(torch.int32), alive
+
+
+def recurrence_restore(res, coeffs, order, shift, min_pred_n, valid_len=None):
+    """Closed-loop FIR/LPC restore of every lane: ``x[n] = r[n] +
+    (sum_{i <= min(n, order)} coeffs[:, i] * x[n - i] >> shift)`` from
+    ``n >= min_pred_n`` and for ``n < valid_len``.
+
+    ``res`` (lanes, L) int32 residuals; ``coeffs`` (lanes, >= 33) integer
+    taps with index 0 unused (int16 on the wire; |c| < 2^26 keeps every
+    int64 sum exact); ``order`` (0..32), ``shift`` (0..63), ``min_pred_n``
+    and ``valid_len`` (None: L) per lane. Returns (samples (lanes, L)
+    int32, ok (lanes,) bool): the values of the JAX function's int64
+    output, in half the bytes. A lane stops at its first sample outside
+    int32: ok clears, and that sample and the rest of the row are its
+    residuals, as the numpy reference leaves them. A lane with an order or
+    shift outside its range is rejected whole. Beyond ``valid_len`` the
+    residuals pass through.
+    """
+    vecs = _restore_operands(res, coeffs, order, shift, min_pred_n, valid_len)
+    if _on_cpu(res, "recurrence_restore"):
+        return recurrence_restore_plain(res, coeffs, *vecs)
+    lanes, n = res.shape
+    cs = coeffs[:, : MAX_ORDER + 1].to(torch.int32).contiguous()
+    order, shift, min_pred_n, valid_len = (v.to(torch.int32).contiguous() for v in vecs)
+    out = torch.empty((lanes, n), dtype=torch.int32, device=res.device)
+    ok = torch.empty((lanes,), dtype=torch.bool, device=res.device)
+    _launch("lac_recurrence_restore", res, res.data_ptr(), cs.data_ptr(), order.data_ptr(), shift.data_ptr(),
+            min_pred_n.data_ptr(), valid_len.data_ptr(), lanes, n, out.data_ptr(), ok.data_ptr())
+    _count("recurrence_restore")
+    return out, ok

@@ -5,9 +5,11 @@ Encode side, on tensors (predictors.py:36-73): fixed orders 0-4
 the Q15 LPC dot over preceding original samples with its int32
 in-range flag.
 
-Decode side, numpy on the host (predictors.py:116-199): the decoder's
-Python block reader, which gives the canonical error message for a
-block the native decoder rejected, restores through these.
+Decode side (predictors.py:116-240): numpy on the host for the
+decoder's Python block reader, which restores one block at a time and
+gives the canonical error messages; and :func:`fixed_restore_multi`, the
+device decode backend's batched fixed-order restore, on tensors. The
+backend's FIR/LPC restore is kernel 7 (:func:`.cuda_kernels.recurrence_restore`).
 """
 
 import numpy as np
@@ -126,3 +128,38 @@ def lpc_restore(res, coeffs_q15, order):
     """Closed-loop LPC reconstruction of one lane (block/decoder.cpp:360-403);
     ``coeffs_q15``: (order+1,) with index 0 unused."""
     return _recurrence_restore(res, np.asarray(coeffs_q15)[1 : order + 1], 15, 0)
+
+
+def fixed_restore_multi(res, order, valid_len=None):
+    """Fixed-order restore of many lanes with a *per-lane* order (0..4), in
+    torch operations on the lanes' device (predictors.py:202-240): the
+    warmup maps each lane's raw samples through its own stencil row, then
+    four masked ``cumsum`` rounds apply ``order[l]`` prefix sums to lane
+    ``l``. Same acceptance as per-order :func:`fixed_restore`.
+
+    ``res``: (G, L) integer residuals; ``order``, ``valid_len`` (None: L):
+    (G,). Returns (samples int64 (G, L), ok bool (G,)).
+    """
+    y = res.to(torch.int64)
+    G, L = y.shape
+    dev = y.device
+    od = order.to(dev, torch.int64)
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    nv = torch.full((G,), L, dtype=torch.int64, device=dev) if valid_len is None else valid_len.to(dev, torch.int64)
+    vmask = idx[None, :] < nv[:, None]
+
+    table = torch.zeros((5, 5), dtype=torch.int64)
+    for o, w in _FIXED_STENCILS.items():
+        table[o, : len(w)] = torch.tensor(w)
+    w_lane = table.to(dev)[od]  # (G, 5) stencil row of each lane
+    warm = torch.zeros_like(y)
+    for i in range(5):
+        warm += w_lane[:, i : i + 1] * shift_right(y, i)
+    y = torch.where(idx[None, :] < od[:, None], warm, y)
+
+    ok = torch.ones((G,), dtype=torch.bool, device=dev)
+    for r in range(4):
+        active = od > r
+        y = torch.where(active[:, None], torch.cumsum(torch.where(vmask, y, 0), dim=-1), y)
+        ok &= torch.where(vmask, y.abs() <= _STAGE_BOUND, True).all(dim=-1) | ~active
+    return y, ok & torch.where(vmask, _in_int32(y), True).all(dim=-1)

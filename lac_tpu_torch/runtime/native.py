@@ -12,7 +12,8 @@ pure-Python fallback for what the runtime does.
 Only the entries the port calls are bound: plan replay
 (``lac_emit_blocks_planes``, ``lac_emit_blocks``), the host planner
 (``lac_plan_blocks``), autocorrelation, the stereo estimate, the three
-decoders and the thread collector.
+decoders, the v3 tokenizer of the device decode backend and the thread
+collector.
 """
 
 import ctypes
@@ -52,6 +53,8 @@ _ENTRIES = {
     "lac_decode_v3_to_pcm": (ctypes.c_int, [_u8p, _u64p, _u64p, _u32p, _u64p, _u32, _u32, _u32, _u32,
                                             _u8p, _i32]),
     "lac_decode_v2_stream": (ctypes.c_int, [_u8p, _u64, _u32p, _u64p, _u32, _u32, _u32, _u32, _i32p, _i32p]),
+    "lac_tokenize_v3_blocks": (ctypes.c_int, [_u8p, _u64p, _u64p, _u32p, _u64p, _u32, _u32, _u32, _i32p, _u64,
+                                              _u8p, _u8p, _i16p, _u8p, _i32]),
     "lac_emit_blocks": (ctypes.c_int, [_i32p, _u32, _u32, _u8p, _u8p, _i16p, _u8p, _u8p, _u8p,
                                        _u8p, _u64, _u64p, _i32]),
     "lac_emit_blocks_planes": (ctypes.c_int, [_vp, _vp, _u32, _u32, _i32p, _u8p, _u8p, _u32p, _u32, _u32,
@@ -261,6 +264,30 @@ def decode_v3_to_pcm(payload, payload_offsets, payload_sizes, block_sizes, sampl
     if status != 0:
         raise ValueError(f"block={-status - 1}")
     return out
+
+
+def tokenize_v3_blocks(payload, payload_offsets, payload_sizes, block_sizes, sample_offsets,
+                       channels, stereo_mode, total_samples, num_threads=0):
+    """Parallel v3 block tokenize, no reconstruction: -> (residual planes
+    (C, total) int32, ptype (nb, C) uint8, order (nb, C) uint8, coeffs
+    (nb, C, 33) int16, ms flags (nb,) uint8); ValueError ``block=<i>``
+    on a bad block."""
+    lib = get_native()
+    tbl = _table(payload, payload_offsets, payload_sizes, block_sizes, sample_offsets)
+    nb = len(tbl[3])
+    res = np.zeros((channels, total_samples), dtype=np.int32)
+    ptype = np.zeros((nb, channels), dtype=np.uint8)
+    order = np.zeros((nb, channels), dtype=np.uint8)
+    coeffs = np.zeros((nb, channels, 33), dtype=np.int16)
+    msflag = np.zeros(nb, dtype=np.uint8)
+    status = lib.lac_tokenize_v3_blocks(
+        *_table_ptrs(*tbl), nb, channels, stereo_mode, _ptr(res, ctypes.c_int32), total_samples,
+        _ptr(ptype, ctypes.c_uint8), _ptr(order, ctypes.c_uint8), _ptr(coeffs, ctypes.c_int16),
+        _ptr(msflag, ctypes.c_uint8), num_threads,
+    )
+    if status != 0:
+        raise ValueError(f"block={-status - 1}")
+    return res, ptype, order, coeffs, msflag
 
 
 def decode_v2_stream(payload, block_sizes, sample_offsets, channels, stereo_mode, bit_depth, total_samples):
