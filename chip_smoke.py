@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the lac_tpu_torch port on one CUDA card.
+"""Smoke run of the lac_tpu_torch port on one CUDA card, and of its mesh
+on every card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # phases 1-12; one card is enough
+    python3 chip_smoke.py --mesh    # phases 1-3 and 12 alone, on every visible card
 
 1. device: the card's name and power limit; the host must be x86-64
    (80-bit long double for Levinson-Durbin);
@@ -80,7 +82,23 @@
     ranges on every backend; a corrupt block named by the device
     backend's error. The gliding sines of phase 4 code every lane with a
     fixed predictor, so kernel 7's path shape is the 3-minute noise file
-    (476 of its 970 lanes FIR/LPC) and phase 4's 100 s of filtered noise.
+    (476 of its 970 lanes FIR/LPC) and phase 4's 100 s of filtered noise;
+12. the mesh (``parallel.mesh``): on a stand-in mesh of two entries on
+    card 0, ``plan_group_sharded`` at the (256, 16384) and (3072, 256) plan
+    shapes equal to ``plan_group``, the 3-minute file through
+    ``FrameEncoder(mesh=)`` equal to one card's bytes with one card's
+    launches and plans, phase 6's clips through ``encode_pooled`` with the
+    stand-in mesh as template (frames equal to the host route, decodes
+    PCM-exact, launches accounted for by the timed shapes); and
+    ``default_mesh()`` None with one card. With two or more cards, the
+    mesh over all of them: the 3-minute file and the clips pooled (walls
+    in turns one card, mesh, mesh, one card; launches per card; CUDA
+    events around every chunk's stages, put on the host clock, must show
+    chunks on different cards overlapping in time; peak device memory per
+    card; busy share per card from torch.profiler), the clips through
+    ``serve.serve(["--workers=4"])`` on the default mesh against
+    ``LAC_TPU_MESH=0``, and the long WAV through the CLI's streaming route
+    in fresh processes, on and off.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -106,12 +124,13 @@ import torch
 from lac_tpu_torch import cli, device_decode, device_pipeline, pool, serve, stream
 from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import DecodeError, FrameDecoder
-from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.encoder import FrameEncoder, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
 from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.ops._backend import u32_from_bits
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
+from lac_tpu_torch.parallel import default_mesh, make_mesh, plan_group_sharded
 from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo
 from lac_tpu_torch.runtime import native
 from tests.signals import cases as golden_cases
@@ -474,9 +493,11 @@ def count_plan_batches():
     """Wrap the plane pipeline's planner: plan batches counted by row length."""
     calls = {}
     plan = device_pipeline.plan_group
+    guard = threading.Lock()  # a mesh plans from one thread per entry
 
     def counted(pcm, *args):
-        calls[pcm.shape[1]] = calls.get(pcm.shape[1], 0) + 1
+        with guard:
+            calls[pcm.shape[1]] = calls.get(pcm.shape[1], 0) + 1
         return plan(pcm, *args)
 
     device_pipeline.plan_group = counted
@@ -691,7 +712,7 @@ root.mkdir()
 _cuda_lib.BUILD_DIR = root / "kernels"  # nothing built yet: the threads build both
 native.BUILD_DIR = root / "runtime"
 from lac_tpu_torch.batch import encode_batch
-from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.encoder import FrameEncoder, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
 from lac_tpu_torch.profile_encode import gliding_stereo
 items = [gliding_stereo(9 * 16384 + 100 * i, 44100, 16, 70 + i) for i in range(4)]
 got = encode_batch(items, 44100, 16, max_workers=4)
@@ -1421,15 +1442,351 @@ def check_decode(files, batch, batches):
     return path.launches
 
 
+# ------------------------------------------------------------ the mesh
+
+
+MESH_CLI_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from lac_tpu_torch import cli
+from lac_tpu_torch.ops import cuda_kernels as K
+from lac_tpu_torch.parallel import default_mesh
+t1 = time.perf_counter()
+if sys.argv[1] == "contexts-first":  # start the cards' CUDA contexts before the encode
+    for i in range(min(2, torch.cuda.device_count()) if default_mesh() else 1):
+        torch.zeros(1, device=f"cuda:{i}")
+        torch.cuda.synchronize(i)
+t2 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+t3 = time.perf_counter()
+print("MESH " + json.dumps({"mesh": [str(d) for d in default_mesh() or ()],
+                            "card_launches": {str(k): sum(v.values()) for k, v in sorted(K.card_launches.items())},
+                            "import_s": t1 - t0, "contexts_s": t2 - t1, "cli_s": t3 - t2}))
+sys.exit(rc)
+"""
+
+
+class ChunkTimeline:
+    """CUDA events around every chunk's analyze and plan stages, by card, put
+    on the host's clock: each card gets an origin event recorded on its idle
+    stream at a known host time (``_ChunkJob``'s stages wrapped on entry,
+    restored on exit)."""
+
+    def __init__(self, cards):
+        self.cards = cards
+
+    def __enter__(self):
+        self.marks = []
+        self.origins = {}
+        for i in self.cards:
+            torch.cuda.synchronize(i)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(i))
+            torch.cuda.synchronize(i)
+            self.origins[i] = (ev, time.perf_counter())
+        guard = threading.Lock()
+        self.real = {name: getattr(device_pipeline._ChunkJob, name) for name in ("dispatch_analyze", "dispatch_plan")}
+
+        def wrap(name, real):
+            def run(job):
+                stream = torch.cuda.current_stream(job.device)
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                out = real(job)
+                stop.record(stream)
+                with guard:
+                    self.marks.append((id(job), job.device.index, name, start, stop))
+                return out
+            return run
+
+        for name, real in self.real.items():
+            setattr(device_pipeline._ChunkJob, name, wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(device_pipeline._ChunkJob, name, real)
+
+    def chunks(self):
+        """[(card, start s, end s)] per chunk, analyze start to plan end, on the host clock."""
+        for i in self.cards:
+            torch.cuda.synchronize(i)
+        spans = {}
+        for key, card, name, start, stop in self.marks:
+            origin, at = self.origins[card]
+            s, e = at + origin.elapsed_time(start) / 1e3, at + origin.elapsed_time(stop) / 1e3
+            lo, hi = spans.get(key, (card, s, e))[1:]
+            spans[key] = (card, min(lo, s), max(hi, e))
+        return list(spans.values())
+
+
+def overlap_report(chunks):
+    """(overlapping pairs of chunks on different cards, seconds with two or
+    more cards inside a chunk, seconds with any card inside one)."""
+    pairs = sum(1 for i, (c1, s1, e1) in enumerate(chunks) for c2, s2, e2 in chunks[i + 1:]
+                if c1 != c2 and min(e1, e2) > max(s1, s2))
+    points = sorted({t for _, s, e in chunks for t in (s, e)})
+    both = anyone = 0.0
+    for a, b in zip(points, points[1:]):
+        inside = {c for c, s, e in chunks if s <= a and e >= b}
+        anyone += (b - a) if inside else 0.0
+        both += (b - a) if len(inside) >= 2 else 0.0
+    return pairs, both, anyone
+
+
+def busy_by_card(fn, cards):
+    """(``fn()``'s result, wall s, card -> device-busy seconds) of a run under
+    torch.profiler with CUDA activity: the union of each card's kernel and copy
+    intervals. Only a profiler that cannot start is let pass (busy None, the
+    run unprofiled); whatever ``fn`` raises goes to the caller."""
+    try:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check: say it was not measured
+        print(f"  busy share not measured (torch.profiler did not start: {type(e).__name__}: {e})")
+        prof = None
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        for i in cards:
+            torch.cuda.synchronize(i)
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.stop()
+    if prof is None:
+        return out, wall, None
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = {}
+    for i in cards:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == cuda and e.device_index == i)
+        total, end = 0.0, None
+        for a, b in spans:
+            if end is None or a > end:
+                total, end = total + b - a, b
+            elif b > end:
+                total, end = total + b - end, b
+        busy[i] = total / 1e6
+    return out, wall, busy
+
+
+def mesh_inputs(tmp):
+    """Phase 12's inputs when it runs alone: the 3-minute file, the clips and
+    the long WAV, each with its one-card bytes."""
+    label, sr, depth, frames, seed = FILES[0]
+    left, right = gliding_stereo(frames, sr, depth, seed)
+    cd = (left, right, FrameEncoder(12, 2, sr, depth, device="cuda").encode_frame(left, right))
+    clips = make_clips()
+    refs = [FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode_frame(l, r) for l, r in clips]
+    long_left, long_right = gliding_stereo(STREAM_BLOCKS * BLOCK + 4321, CLIP_RATE, 16, 5)
+    wav = os.path.join(tmp, "long.wav")
+    check(write_wav_port(wav, long_left, long_right, 2, CLIP_RATE, 16), "long file: WAV write failed")
+    long_ref = FrameEncoder(12, 2, CLIP_RATE, 16, device="cuda").encode(long_left, long_right)
+    return cd, {"clips": clips, "refs": refs, "frames": sum(len(l) for l, _ in clips)}, (wav, long_ref)
+
+
+def check_mesh(tmp, shapes, batches, cd, batch, long_file):
+    """Phase 12: the plane pipeline on a mesh. On every machine a stand-in
+    mesh of two entries on card 0; with two or more cards, the real mesh over
+    all of them, walls in turns against one card. Returns the stand-in runs'
+    launches (the mesh path)."""
+    t12 = time.perf_counter()
+    left, right, cd_ref = cd
+    clips, refs = batch["clips"], batch["refs"]
+    stand_in = make_mesh(["cuda:0", "cuda:0"])
+    D = len(stand_in)
+
+    # plan_group_sharded against plan_group at the path's two plan shapes
+    for rows, n in ((LANES, BLOCK), (12 * LANES, 256)):
+        pcm = np.ascontiguousarray(left[: rows * n].reshape(rows, n))
+        coeffs, _, lvalid, _ = lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
+        ct, vt = plan_inputs_to_torch(coeffs, lvalid, torch.device("cuda", 0))
+        whole = plan_group(torch.from_numpy(pcm).cuda(), ct, vt, n, True, True).cpu().numpy()
+        with Counted(batches) as c:
+            got = plan_group_sharded(stand_in, pcm, coeffs, lvalid, n)
+        check(np.array_equal(got["meta"], whole) and got["total_token_bits"] == rows,
+              f"plan_group_sharded ({rows}, {n}) on the stand-in mesh differs from plan_group")
+        plans = {"full": D if n == BLOCK else 0, "probe": D if n == 256 else 0}  # one plan per shard
+        check_accounting(f"plan_group_sharded ({rows}, {n})", shapes, plans, c.launches)
+        print(f"  plan_group_sharded ({rows}, {n}) on a stand-in mesh of {D}: meta == plan_group's, "
+              f"{got['total_token_bits']} lanes counted, launches {c.launches}")
+
+    # the 3-minute file, then the clips pooled with the stand-in mesh as template
+    with Counted(batches) as one:
+        FrameEncoder(12, 2, 44100, 16, device="cuda").encode(left, right)
+    with Counted(batches) as c_cd:
+        got = FrameEncoder(12, 2, 44100, 16, device="cuda", mesh=stand_in).encode(left, right)
+        torch.cuda.synchronize()
+    check(got == cd_ref, "3-minute file on the stand-in mesh: bytes differ from one card's")
+    check_accounting("3-minute file on the stand-in mesh", shapes, c_cd.plans, c_cd.launches)
+    check(c_cd.launches == one.launches and c_cd.plans == one.plans,
+          f"3-minute file: the stand-in mesh launched {c_cd.launches} in {c_cd.plans}, one card {one.launches} in "
+          f"{one.plans}")
+    with Counted(batches) as c_clips:
+        got, wall, peak = timed_on_card(lambda: pool.encode_pooled(clips, CLIP_RATE, 16, mesh=stand_in))
+    bad = [i for i, (g, w) in enumerate(zip(got, refs)) if g != w]
+    check(not bad, f"clips pooled on the stand-in mesh: frames {bad} differ from the host route")
+    check_decodes("clips pooled on the stand-in mesh", got, clips)
+    check_accounting("clips pooled on the stand-in mesh", shapes, c_clips.plans, c_clips.launches)
+    if torch.cuda.device_count() == 1:
+        check(default_mesh() is None, "default_mesh() with one visible card must be None")
+    mesh_launches = {k: c_cd.launches[k] + c_clips.launches[k] for k in K.launches}
+    print(f"mesh, stand-in ({D} entries on cuda:0): 3-minute file == one card's bytes, launches {c_cd.launches} "
+          f"(one card's); {len(clips)} clips pooled == host route and decode PCM-exact, {wall:.3f} s, "
+          f"{c_clips.plans['full']} full-width and {c_clips.plans['probe']} probe plans, peak device memory "
+          f"{gib(peak)}; default_mesh() = {default_mesh()}; phase 12 (stand-in) {time.perf_counter() - t12:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        check_real_mesh(tmp, shapes, batches, cd, batch, long_file)
+    return mesh_launches
+
+
+def per_card_launches():
+    """(card -> launches of every kernel, card -> {kernel: launches}) since the last reset."""
+    by_kernel = {i: dict(sorted(d.items())) for i, d in sorted(K.card_launches.items())}
+    return {i: sum(d.values()) for i, d in by_kernel.items()}, by_kernel
+
+
+def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
+    """Every card: the 3-minute file, the clips pooled and served, the long WAV
+    through the CLI's streaming route in fresh processes; bytes against one
+    card's, launches on every card, chunks on different cards overlapping in
+    time, walls in turns (one card, mesh, mesh, one card)."""
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    cards = [d.index for d in mesh]
+    left, right, cd_ref = cd
+    clips, refs, frames = batch["clips"], batch["refs"], batch["frames"]
+    print(f"mesh over {len(mesh)} cards: {', '.join(torch.cuda.get_device_name(i) for i in cards)}")
+
+    def on_all(fn):
+        for i in cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+        t = time.perf_counter()
+        out = fn()
+        for i in cards:
+            torch.cuda.synchronize(i)
+        return out, time.perf_counter() - t, [torch.cuda.max_memory_allocated(i) for i in cards]
+
+    runs = {
+        "3-minute file": (lambda m: FrameEncoder(12, 2, 44100, 16, device="cuda", mesh=m).encode(left, right),
+                          lambda got: got == cd_ref, -(-(len(left) // BLOCK) // 256)),
+        "84 clips pooled": (lambda m: pool.encode_pooled(clips, CLIP_RATE, 16, mesh=m),
+                            lambda got: got == refs, len(mesh)),
+    }
+    for label, (fn, ok, used) in runs.items():
+        walls = []
+        for turn, m in enumerate((None, mesh, mesh, None)):
+            with Counted(batches) as c, ChunkTimeline(cards) as tl:
+                got, wall, peaks = on_all(lambda: fn(m))
+            check(ok(got), f"{label}, {'mesh' if m else 'one card'}: bytes differ from one card's")
+            check_accounting(f"{label}, {'mesh' if m else 'one card'}", shapes, c.plans, c.launches)
+            cl, by_kernel = per_card_launches()
+            walls.append(f"{'mesh' if m else 'one card'} {wall:.3f} s")
+            if m is None:
+                check(set(cl) == {0}, f"{label}, one card: launches on cards {cl}")
+                continue
+            check(len([i for i in cards if cl.get(i, 0) > 0]) == min(len(mesh), used),
+                  f"{label}, mesh: want launches on {min(len(mesh), used)} cards, got {cl}")
+            pairs, both, anyone = overlap_report(tl.chunks())
+            if used > 1:
+                check(pairs > 0, f"{label}, mesh: no two chunks on different cards overlap in time")
+            print(f"  {label}, mesh turn {turn}: launches per card {cl} ({by_kernel}); {len(tl.chunks())} chunks, "
+                  f"{pairs} pairs on different cards overlap; two or more cards inside a chunk for {both:.3f} of "
+                  f"{anyone:.3f} s; peak device memory per card {', '.join(gib(p) for p in peaks)}")
+        print(f"  {label}: walls in turns {', '.join(walls)}")
+        for m in (None, mesh):
+            where = "mesh" if m else "one card"
+            got, wall, busy = busy_by_card(lambda: fn(m), cards)
+            check(ok(got), f"{label}, {where} (profiled): bytes differ from one card's")
+            if busy is None:
+                continue
+            print(f"  {label}, {where} (profiled, torch.profiler CUDA activity): wall {wall:.3f} s; "
+                  f"busy share per card {', '.join(f'{i}: {100 * b / wall:.1f}%' for i, b in busy.items())}")
+
+    # the clips through the service, pooled, --workers=4
+    d = os.path.join(tmp, "mesh-serve")
+    os.mkdir(d)
+    wavs = [os.path.join(d, f"clip{i}.wav") for i in range(len(clips))]
+    with ThreadPoolExecutor(8) as ex:
+        check(all(ex.map(lambda i: write_wav_port(wavs[i], *clips[i], 2, CLIP_RATE, 16), range(len(clips)))),
+              "mesh, service: clip WAV write failed")
+    walls = []
+    for turn, on in enumerate((False, True, True, False)):
+        outs = [os.path.join(d, f"t{turn}-{i}.lac") for i in range(len(clips))]
+        script = "".join(f"encode {w} {o}\n" for w, o in zip(wavs, outs)) + "wait\n"
+        wire = Wire()
+        if not on:
+            os.environ["LAC_TPU_MESH"] = "0"
+        try:
+            with Counted(batches) as c:
+                rc, wall, peaks = on_all(lambda: serve.serve(["--workers=4"], stdin=io.StringIO(script), stdout=wire,
+                                                             device="cuda"))
+        finally:
+            os.environ.pop("LAC_TPU_MESH", None)
+        got = answered("mesh, service", wire.lines, len(clips) + 1)
+        check(rc == 0 and all(r["ok"] for r in got.values()), "mesh, service: a job failed")
+        bad = [i for i, o in enumerate(outs) if take(o) != refs[i]]
+        check(not bad, f"mesh, service, {'mesh' if on else 'one card'}: outputs {bad} differ from one card's")
+        check_accounting("mesh, service", shapes, c.plans, c.launches)
+        cl, by_kernel = per_card_launches()
+        check(set(cl) == (set(cards) if on else {0}), f"mesh, service: launches on cards {cl}")
+        walls.append(f"{'mesh' if on else 'one card'} {at_id(wire.lines, len(clips) + 1):.3f} s")
+        if on:
+            print(f"  84 clips served (--workers=4), mesh turn {turn}: launches per card {cl} ({by_kernel}); peak "
+                  f"device memory per card {', '.join(gib(p) for p in peaks)}")
+    print(f"  84 clips served (--workers=4): wait answered, in turns {', '.join(walls)}")
+
+    # the long WAV through the CLI's streaming route, in this process and in fresh ones
+    wav, long_ref = long_file
+    lac = os.path.join(tmp, "mesh-long.lac")
+    walls = []
+    for on in (False, True, True, False):
+        if not on:
+            os.environ["LAC_TPU_MESH"] = "0"
+        try:
+            with Counted(batches) as c:
+                rc, wall, _ = on_all(lambda: cli.main(["encode", wav, lac]))
+        finally:
+            os.environ.pop("LAC_TPU_MESH", None)
+        check(rc == 0 and take(lac) == long_ref, "mesh, long WAV through the CLI in this process: bytes differ")
+        check_accounting("mesh, long WAV through the CLI", shapes, c.plans, c.launches)
+        walls.append(f"{'mesh' if on else 'one card'} {wall:.3f} s")
+    print(f"  long WAV through the CLI's streaming route in this process: walls in turns {', '.join(walls)}")
+    walls = []
+    for on, first in ((False, False), (True, False), (True, False), (False, False),
+                      (False, True), (True, True), (True, True), (False, True)):
+        env = None if on else {"LAC_TPU_MESH": "0"}
+        rc, out, wall, rss = run_child(["-c", MESH_CLI_CHILD, "contexts-first" if first else "as-is", "encode", wav,
+                                        lac], env)
+        check(rc == 0 and take(lac) == long_ref, f"mesh, long WAV through the CLI ({rc}): bytes differ\n{out}")
+        info = json.loads(next(line for line in out.splitlines() if line.startswith("MESH "))[5:])
+        cl = {int(k): v for k, v in info["card_launches"].items()}
+        check(len(info["mesh"]) == (len(mesh) if on else 0) and len(cl) == (min(len(mesh), 2) if on else 1),
+              f"mesh, long WAV through the CLI: {info}")
+        walls.append(f"{'mesh' if on else 'one card'}{', contexts first' if first else ''} {wall:.2f} s (import "
+                     f"{info['import_s']:.2f}, contexts {info['contexts_s']:.2f}, cli.main {info['cli_s']:.2f})")
+        if on and not first:
+            print(f"  long WAV ({STREAM_BLOCKS} blocks, streaming route, 512-block stream chunks of two 256-block "
+                  f"pipeline chunks each), fresh process: launches per card {cl}, peak RSS {rss:.0f} MiB")
+    print(f"  long WAV through the CLI in fresh processes, in turns: {'; '.join(walls)}")
+    print(f"mesh over {len(mesh)} cards: every output == one card's bytes; {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    if sys.argv[1:] and not mesh_only:
+        raise SystemExit("usage: python3 chip_smoke.py [--mesh]")
     t_start = time.perf_counter()
 
     # 1. device and host
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)  # one line per card
     x87 = np.finfo(np.longdouble).machep == -63
     print(f"host: machine={platform.machine()} x87_long_double={x87} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
@@ -1455,6 +1812,13 @@ def main():
     records, shapes = check_kernels(rng)
     check_argmin_ties(rng)
     restore_rng = np.random.RandomState(20261017)  # phase 11's kernel inputs, apart from the others' stream
+
+    if mesh_only:  # phase 12 alone, on every visible card
+        batches = count_plan_batches()
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path = {"mesh": check_mesh(tmp, shapes, batches, *mesh_inputs(tmp))}
+        finish(t_start, records, by_path, "mesh", ENCODE_KERNELS)
+        return
 
     # 4. real-size encodes through the port's main path, held to the port's host route
     audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
@@ -1549,16 +1913,24 @@ def main():
         by_path["decode"] = check_decode(files, batch, batches)
         print(f"phase 11 (decode on the card): {time.perf_counter() - t11:.1f} s")
 
-    # 9. the port stands alone
+        # 12. the mesh: a stand-in of two entries on card 0, and every card when there are two or more
+        by_path["mesh"] = check_mesh(tmp, shapes, batches, (*audio[0][3], refs[0]), batch, (long_wav, long_lac))
+
+    finish(t_start, records, by_path, "files", KERNELS)
+
+
+def finish(t_start, records, by_path, path, names):
+    """9. the port stands alone; then the kernel record (``launches`` from
+    ``path``, kernel 7's from the decode path) and the device record."""
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m == "lac_tpu" or m.startswith("lac_tpu."))
     check(not ref_mods, f"lac_tpu modules were imported: {ref_mods}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": by_path["decode" if name == RESTORE else "files"][name],  # each kernel's own path
-         "launches_by_path": {path: n[name] for path, n in by_path.items()},
-         **records[name]} for name in KERNELS
+         "launches": by_path["decode" if name == RESTORE else path][name],  # each kernel's own path
+         "launches_by_path": {p: n[name] for p, n in by_path.items()},
+         **records[name]} for name in names
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

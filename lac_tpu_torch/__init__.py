@@ -19,8 +19,12 @@ Entry points (``encoder.FrameEncoder``, ``cli.main``,
 ``stream.encode_wav_to_lac``, ``batch.encode_batch``,
 ``pool.encode_pooled``) run on the CUDA card unless the caller passes
 ``device="cpu"``; array helpers run on the device of the tensors they
-are given.
+are given. With two or more cards visible, the CLI, pooled waves and
+the service spread their chunks over every card
+(:func:`.parallel.default_mesh`; ``LAC_TPU_MESH=0`` turns it off).
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -28,10 +32,18 @@ import torch
 __version__ = "0.1.0"
 
 
+def on_card(device):
+    """Context that makes ``device`` the current CUDA device of this
+    thread (nothing for the CPU): what a bare "cuda", a new CUDA event
+    or a pinned buffer takes as its card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def upload(a, device):
-    """numpy array -> tensor on ``device``. CUDA copies go through pinned
-    memory without blocking, so an upload never waits for the device
-    work queued before it."""
+    """numpy array -> tensor on ``device`` (a card with an index lands on
+    that card, whatever this thread's current device). CUDA copies go
+    through pinned memory without blocking, so an upload never waits for
+    the device work queued before it."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -40,15 +52,17 @@ def upload(a, device):
 
 class HostCopy:
     """A device->host copy started now and awaited by :meth:`numpy`
-    (pinned buffer + CUDA event; the tensor itself on the CPU)."""
+    (pinned buffer + CUDA event, both made on the tensor's card; the
+    tensor itself on the CPU)."""
 
     def __init__(self, t):
         self.event = None
         if t.device.type == "cuda":
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(t.device))
+            with on_card(t.device):
+                self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self.host.copy_(t, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(t.device))
         else:
             self.host = t
 
@@ -75,7 +89,8 @@ def check_device(device) -> torch.device:
 
 def resolve_device(device) -> torch.device:
     """:func:`check_device`, then the card's index filled in: a bare
-    "cuda" becomes the current device, which starts the CUDA context."""
+    "cuda" becomes this thread's current device (in a mesh's dispatch
+    thread, that thread's card), which starts the CUDA context."""
     dev = check_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -2,13 +2,15 @@
 
 Files are independent, so the simplest correct scale-out is a host
 worker pool: each worker thread runs the full frame pipeline. One
-thread at a time queues a chunk's device work (the plane pipeline's
-dispatch lock: interleaved operator streams cost a thread switch per
-operator), queued asynchronously on the card's stream, while other
+thread at a time queues a chunk's device work on a card (the plane
+pipeline's dispatch lock: interleaved operator streams cost a thread
+switch per operator), queued asynchronously on the card's stream, while other
 workers wait for copies, emit and assemble on the host. The kernels are
 built once per process (under a lock) and the uploaded tables are
 cached, so concurrency costs no extra build. Each worker holds its own
 chunks' device buffers: peak device memory grows with ``max_workers``.
+With ``mesh=`` each file's chunks spread over the mesh's cards (the
+same lock: one stage at a time in the process, whatever its card).
 
 :func:`.pool.encode_pooled` is the same interface with the full blocks
 of all items sharing the card's plan batches.
@@ -30,7 +32,9 @@ def encode_batch(items, sample_rate, bit_depth, stereo_mode=2, device="cuda", ma
     for mono). All items share the format parameters. ``device``: "cuda"
     unless the caller asks for "cpu"; a missing card raises.
     ``encoder_opts``: ``FrameEncoder`` setters by name
-    (``partitioning_enabled=False`` calls ``set_partitioning_enabled``).
+    (``partitioning_enabled=False`` calls ``set_partitioning_enabled``;
+    ``mesh=make_mesh()`` calls ``set_mesh``, so each file's chunks spread
+    over the mesh's cards).
     """
     device = check_device(device)
     items = [(l, (r if r is not None else np.empty(0, np.int32))) for l, r in items]

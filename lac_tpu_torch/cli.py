@@ -21,7 +21,10 @@ output, ``LAC_TPU_STREAM_CHUNK_BLOCKS`` blocks at a time (default 512),
 in bounded memory; the debug flags keep the in-memory path. The card is
 checked for at once and its CUDA context starts only when the plane
 pipeline runs: an input under ``device_pipeline.MIN_FULL_BLOCKS`` full
-blocks is planned on the host and starts none.
+blocks is planned on the host and starts none. An input that reaches
+the plane pipeline, streamed or not, spreads its chunks over every
+visible card when there are two or more (:func:`.parallel.default_mesh`;
+``LAC_TPU_MESH=0`` keeps one card); counting the cards starts no context.
 """
 
 import math
@@ -147,6 +150,7 @@ def _report_threads(debug_threads: bool, label="Thread usage", warning="Multi-th
 
 
 def _cmd_encode(argv, device) -> int:
+    from . import device_pipeline
     from .encoder import FrameEncoder
     from .io import read_wav
 
@@ -190,9 +194,17 @@ def _cmd_encode(argv, device) -> int:
             return 1
         left, right, channels, sample_rate, bit_depth = wav
     effective_mode = 0 if channels == 1 else opts["stereo_mode"]
+    mesh = None
+    frames = stream_info.frames if stream_info is not None else len(left)
+    if device.type == "cuda" and device_pipeline.applicable(frames // C.MAX_BLOCK_SIZE):
+        # the product default: every visible card (the reference's worker
+        # pool uses every core without a flag); bytes are one card's
+        from .parallel import default_mesh
+
+        mesh = default_mesh()
 
     def make_encoder():
-        enc = FrameEncoder(12, effective_mode, sample_rate, bit_depth, device=device)
+        enc = FrameEncoder(12, effective_mode, sample_rate, bit_depth, device=device, mesh=mesh)
         enc.set_partitioning_enabled(opts["partitioning"])
         enc.set_thread_count(thread_count)
         return enc

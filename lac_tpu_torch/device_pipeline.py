@@ -1,5 +1,5 @@
 """Device-resident plane pipeline for full-size blocks
-(lac_tpu/device_pipeline.py, single device).
+(lac_tpu/device_pipeline.py).
 
 Per chunk of K full blocks:
 
@@ -20,6 +20,18 @@ Chunks flow through a sliding window (analyze chunk j, plan chunk j-2,
 emit chunk j-3). Device work is queued asynchronously and device->host
 copies start as soon as their producer is queued, so the host's LD and
 native emit overlap the device's analyze and plan.
+
+A dispatch thread runs the window's analyze and plan stages with its
+card as the thread's current device; the calling thread emits every
+chunk in block order. On a mesh (:mod:`.parallel.mesh`) chunk j goes to
+entry ``j % len(mesh)`` and is uploaded straight to that card, each
+entry has a dispatch thread of its own for its chunks, and the entries
+take turns by stage (``_dispatch_lock``). The chunk width is one
+card's, so every plan shape, and the operators and kernel launches of an
+encode, are those of one card. Unlike the reference,
+which splits each chunk's blocks over the shards and quietly drops a
+mesh that does not divide the chunk width, any mesh size works, and a
+failure on any card raises out of :meth:`PlanePipeline.run`.
 """
 
 import threading
@@ -27,7 +39,7 @@ import threading
 import numpy as np
 import torch
 
-from . import HostCopy, upload
+from . import HostCopy, on_card, resolve_device, upload
 from .encoder import expand_plan, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
 from .format import constants as C
 from .ops.lpc import autocorrelation
@@ -43,13 +55,55 @@ CHUNK_BLOCKS = 0
 CHUNK_LADDER = (64, 128, 256)
 MIN_FULL_BLOCKS = 8
 PIPE_DEPTH = 2  # analyze -> plan gap, in chunks
-# One thread at a time queues a chunk's device work. A stage is thousands
-# of small torch operators, each of which hands the interpreter lock over
-# and takes it back: pipelines on several threads (``batch.encode_batch``)
-# that interleave their stages pay a thread switch per operator (measured
-# on an H100: 4 threads 3x slower than one; ``ab_batch_threads.py``).
-# Emit, the waits on copies and the host route run outside the lock.
-_dispatch_lock = threading.Lock()
+
+
+class _TurnLock:
+    """A lock that threads take in the order they asked for it, so that
+    threads waiting for it get their turns one by one (a plain lock lets its
+    last holder take it again at once). A waiter interrupted by an exception
+    (KeyboardInterrupt, a signal handler that raises) gives its turn up, so
+    the threads behind it are not left waiting for it."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._next = 0  # tickets handed out
+        self._serving = 0  # ticket that holds the lock
+        self._given_up = set()  # tickets of interrupted waiters, not yet passed
+
+    def __enter__(self):
+        with self._cv:
+            ticket = self._next
+            self._next += 1
+            try:
+                self._cv.wait_for(lambda: self._serving == ticket)
+            except BaseException:
+                self._given_up.add(ticket)
+                self._pass_on()
+                raise
+        return self
+
+    def __exit__(self, *exc):
+        with self._cv:
+            self._serving += 1
+            self._pass_on()
+
+    def _pass_on(self):  # under _cv: skip the turns that were given up
+        while self._serving in self._given_up:
+            self._given_up.remove(self._serving)
+            self._serving += 1
+        self._cv.notify_all()
+
+
+# One thread at a time issues a stage's device work, whatever its card, and
+# waiting threads take turns. A stage is thousands of small torch operators,
+# each of which hands the interpreter lock over and takes it back: threads
+# that interleave their stages pay a thread switch per operator (on H100s:
+# 4 threads on one card 3x slower than one, ``ab_batch_threads.py``, and a
+# lock per card made a mesh of 4 cards 1.4-1.8x slower than one card). The
+# cards' device work still overlaps: a stage is queued asynchronously, and
+# the next turn goes to another card while it runs. Emit, the host route
+# and the wait for a chunk's analyze results run outside it.
+_dispatch_lock = _TurnLock()
 
 
 def chunk_width(nfull):
@@ -116,10 +170,11 @@ def analyze(lmat, rmat, kind):
 class _ChunkJob:
     """One chunk of kc full blocks through analyze -> plan -> emit."""
 
-    def __init__(self, pipe, c0, kc):
+    def __init__(self, pipe, c0, kc, device):
         self.pipe = pipe
         self.c0 = c0  # first block index (within the full-block prefix)
         self.kc = kc  # blocks in this chunk (<= K)
+        self.device = device  # the mesh entry this chunk runs on
 
     def _row_of(self, p, i):  # plane p, local block i -> planes row
         return p * self.kc + i
@@ -130,10 +185,15 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 1
     def dispatch_analyze(self):
         pipe = self.pipe
-        lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], pipe.device)
-        rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], pipe.device) if pipe.rview is not None else lmat
+        lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
+        rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
         self.dev = analyze(lmat, rmat, pipe.kind)
         self.copies = {k: HostCopy(self.dev[k]) for k in ("cm", "un", "lags", "plags") if k in self.dev}
+
+    def await_analyze(self):
+        """Wait until the analyze results that the plan stage reads are on the host."""
+        for copy in self.copies.values():
+            copy.numpy()
 
     # ------------------------------------------------------------ stage 2
     def dispatch_plan(self):
@@ -185,8 +245,8 @@ class _ChunkJob:
         """Gather ``rows`` of ``src`` and plan them batch by batch; returns
         the started host copies of the meta rows."""
         pipe = self.pipe
-        rows_t = upload(rows, pipe.device)
-        ct, vt = plan_inputs_to_torch(coeffs, lvalid, pipe.device)
+        rows_t = upload(rows, self.device)
+        ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
         copies = []
         for lo, nsub, _ in batches:
             g = src.index_select(0, rows_t[lo : lo + nsub])
@@ -285,7 +345,9 @@ class _ChunkJob:
 
 
 class PlanePipeline:
-    """The plane pipeline over ``nfull`` full blocks on ``device``.
+    """The plane pipeline over ``nfull`` full blocks on ``device``, or on
+    the cards of ``mesh`` (a :func:`.parallel.make_mesh` tuple) when one
+    is given.
 
     The blocks are the leading ones of ``left``/``right`` or, with
     ``views=(lview, rview)``, the rows of prebuilt (nfull, N) plane
@@ -293,8 +355,9 @@ class PlanePipeline:
     (:mod:`.pool`): once the planes are cut a block no longer knows its
     file, so the pipeline is the same."""
 
-    def __init__(self, frame_enc, left, right, nfull, kind, device, views=None):
-        self.device = device
+    def __init__(self, frame_enc, left, right, nfull, kind, device, views=None, mesh=None):
+        # resolved here: a dispatch thread's current card is not the caller's
+        self.mesh = tuple(mesh) if mesh is not None else (resolve_device(device),)
         self.kind = kind
         self.zero_run = bool(frame_enc.zero_run_enabled)
         self.partitioning = bool(frame_enc.partitioning_enabled)
@@ -310,21 +373,25 @@ class PlanePipeline:
             self.rview = (
                 np.ascontiguousarray(right[: nfull * N].reshape(nfull, N), dtype=dt) if kind != "mono" else None
             )
-        self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0)) for c0 in range(0, nfull, self.K)]
+        D = len(self.mesh)
+        self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0), self.mesh[j % D])
+                     for j, c0 in enumerate(range(0, nfull, self.K))]
 
     def run(self, progress_cb=None):
         """Sliding window: analyze chunk j while planning chunk j-D and
-        emitting chunk j-D-1 (D = PIPE_DEPTH). Returns (payloads
-        {block: {slot: bytes}}, flags {block: 0|1}, uncertain {block: bool}).
+        emitting chunk j-D-1 (D = PIPE_DEPTH; on a mesh, j and j-D count
+        one entry's chunks, and emits follow block order). Returns
+        (payloads {block: {slot: bytes}}, flags {block: 0|1}, uncertain
+        {block: bool}).
 
-        ``progress_cb(done_blocks, payloads, flags, uncertain)`` fires
-        after each chunk's emit with the number of leading blocks that
-        are complete (chunks finish in block order) and the very dicts
-        this method returns, still filling: a pooled wave hands each
-        file's entries over, popping them, while later chunks are on the
-        device."""
+        ``progress_cb(done_blocks, payloads, flags, uncertain)`` fires on
+        the calling thread after each chunk's emit with the number of
+        leading blocks that are complete (chunks finish in block order)
+        and the very dicts this method returns, still filling: a pooled
+        wave hands each file's entries over, popping them, while later
+        chunks are on the device."""
         payloads, flags, uncertain = {}, {}, {}
-        jobs, depth = self.jobs, PIPE_DEPTH
+        jobs = self.jobs
 
         def _finish(i):
             p, f, u = jobs[i].finish()
@@ -335,24 +402,82 @@ class PlanePipeline:
             if progress_cb is not None:
                 progress_cb(jobs[i].c0 + jobs[i].kc, payloads, flags, uncertain)
 
-        def _dispatch(stage):
-            with _dispatch_lock:
-                stage()
-
-        for j, job in enumerate(jobs):
-            _dispatch(job.dispatch_analyze)
-            if j >= depth:
-                _dispatch(jobs[j - depth].dispatch_plan)
-            if j >= depth + 1:
-                _finish(j - depth - 1)
-        for i in range(max(len(jobs) - depth, 0), len(jobs)):
-            _dispatch(jobs[i].dispatch_plan)
-        for i in range(max(len(jobs) - depth - 1, 0), len(jobs)):
-            _finish(i)
+        self._run(_finish)
         return payloads, flags, uncertain
 
+    def _run(self, finish):
+        """One dispatch thread per mesh entry (one card without a mesh is
+        an entry of its own), emits on the calling thread in block order,
+        so a chunk's native emit overlaps the dispatch of the chunks
+        behind it. An entry analyzes its next chunk only once the chunk
+        PIPE_DEPTH + 2 of its own back has been emitted, so each card holds
+        the buffers of as many chunks as a window of PIPE_DEPTH + 2."""
+        jobs, depth, D = self.jobs, PIPE_DEPTH, len(self.mesh)
+        window = depth + 2
+        cv = threading.Condition()
+        state = {"planned": set(), "emitted": 0, "failure": None, "abort": False}
 
-def encode_full_blocks(frame_enc, left, right, nfull, kind, device):
-    """Encode the leading ``nfull`` full-size blocks on ``device``; see
-    :meth:`PlanePipeline.run` for the result."""
-    return PlanePipeline(frame_enc, left, right, nfull, kind, device).run()
+        def go_on(wanted):  # under cv: False once the run is aborted
+            cv.wait_for(lambda: state["abort"] or wanted())
+            return not state["abort"]
+
+        def shard(s):
+            mine = jobs[s::D]  # chunk i of this entry is chunk s + i * D
+
+            def plan(i):
+                mine[i].await_analyze()  # the card finishes it while other entries dispatch
+                with _dispatch_lock:
+                    mine[i].dispatch_plan()
+                with cv:
+                    state["planned"].add(s + i * D)
+                    cv.notify_all()
+
+            try:
+                with on_card(self.mesh[s]):
+                    for i, job in enumerate(mine):
+                        with cv:
+                            if not go_on(lambda: i < window or state["emitted"] > s + (i - window) * D):
+                                return
+                        with _dispatch_lock:
+                            job.dispatch_analyze()
+                        if i >= depth:
+                            plan(i - depth)
+                    for i in range(max(len(mine) - depth, 0), len(mine)):
+                        with cv:
+                            if state["abort"]:
+                                return
+                        plan(i)
+            except BaseException as e:  # noqa: BLE001 — handed to the calling thread, which raises it
+                with cv:
+                    state["failure"] = e
+                    state["abort"] = True
+                    cv.notify_all()
+
+        threads = [threading.Thread(target=shard, args=(s,), name=f"lac-dispatch-{s}-{self.mesh[s]}", daemon=True)
+                   for s in range(min(D, len(jobs)))]
+        for t in threads:
+            t.start()
+        try:
+            for j in range(len(jobs)):
+                with cv:
+                    cv.wait_for(lambda: state["failure"] is not None or j in state["planned"])
+                    if state["failure"] is not None:
+                        raise state["failure"]
+                finish(j)
+                with cv:
+                    state["emitted"] = j + 1
+                    cv.notify_all()
+        except BaseException:
+            with cv:
+                state["abort"] = True
+                cv.notify_all()
+            raise
+        finally:
+            for t in threads:
+                t.join()
+
+
+def encode_full_blocks(frame_enc, left, right, nfull, kind, device, mesh=None):
+    """Encode the leading ``nfull`` full-size blocks on ``device`` (or on
+    the cards of ``mesh``); see :meth:`PlanePipeline.run` for the result."""
+    return PlanePipeline(frame_enc, left, right, nfull, kind, device, mesh=mesh).run()

@@ -32,6 +32,7 @@ from .ops import adapt, lpc, predictors, runs
 from .ops._backend import shift_right, u32_from_bits
 from .ops.cuda_kernels import k_cost_partition_sums, k_cost_sums
 from .ops.stereo import estimate_stereo_mode_host, ms_transform_host
+from .parallel.mesh import make_mesh
 from .runtime import native
 from .utils.debug import debug_log
 
@@ -106,11 +107,13 @@ def _head_and_row_costs(u32):
             _k_costs_from_sums(row_sums.reshape(lead + (17,)), C.MAX_STATIC_K, n))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _partition_geometry(n, p, device):
     """Static geometry of partition order ``p`` on ``device``, uploaded
-    once per process (a host->device copy inside the planner would
-    synchronise the stream)."""
+    once per process and card (a host->device copy inside the planner
+    would synchronise the stream). ``device`` is a tensor's, which always
+    carries its index, so one card is one key; no bound, so a mesh of
+    any size keeps every card's tables."""
     nparts = 1 << p
     starts = np.minimum(np.arange(nparts, dtype=np.int64) * (n >> p), n)
     ends = np.concatenate([starts[1:], [n]])
@@ -123,7 +126,7 @@ def _partition_geometry(n, p, device):
     return {k: upload(v, device) for k, v in geometry.items()}
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _ptype_table(device):
     return torch.tensor([t for t, _ in _CANDIDATES], dtype=torch.int64, device=device)
 
@@ -406,10 +409,11 @@ class ChannelBlockEncoder:
 
     GROUP_LANES = 256  # lanes per native call: bounds the emit buffers
 
-    def __init__(self, zero_run_enabled=True, partitioning_enabled=True, thread_count=0):
+    def __init__(self, zero_run_enabled=True, partitioning_enabled=True, thread_count=0, mesh=None):
         self.zero_run_enabled = bool(zero_run_enabled)
         self.partitioning_enabled = bool(partitioning_enabled)
         self.thread_count = int(thread_count)
+        self.mesh = mesh  # kept as the reference keeps it; the host route plans on the host
 
     def lpc_analysis(self, pcm, n):
         """(B, n) int32 -> LPC candidate arrays (see :func:`lpc_candidates_from_lags`)."""
@@ -454,12 +458,16 @@ class FrameEncoder:
     the plane pipeline plans the full-block prefix on the device (at
     least ``device_pipeline.MIN_FULL_BLOCKS`` full blocks); the host
     route (:meth:`encode_frame`) plans the other blocks and assembles
-    the v3 frame. Same constructor, setters and output bytes as
+    the v3 frame. With ``mesh`` (a :func:`.parallel.make_mesh` tuple) the
+    plane pipeline spreads its chunks over the mesh's cards instead of
+    ``device``. Same constructor, setters and output bytes as
     ``lac_tpu.encoder.FrameEncoder``."""
 
     def __init__(self, order=12, stereo_mode=C.STEREO_PER_BLOCK, sample_rate=44100,
-                 bit_depth=16, device="cuda"):
+                 bit_depth=16, device="cuda", mesh=None):
         self._device = check_device(device)  # a missing card raises here; the context starts on first use
+        self.mesh = None
+        self.set_mesh(mesh)
         self.order = order
         self.stereo_mode = stereo_mode
         self.sample_rate = sample_rate
@@ -495,6 +503,12 @@ class FrameEncoder:
 
     def set_debug_partitions(self, enabled):
         self.debug_partitions = enabled
+
+    def set_mesh(self, mesh):
+        """Spread the plane pipeline's chunks over ``mesh`` (a tuple of
+        devices, see :func:`.parallel.make_mesh`; None: ``device`` alone).
+        Output bytes are those of one device."""
+        self.mesh = make_mesh(mesh) if mesh is not None else None
 
     def _validate(self, left, right):
         if len(left) == 0:
@@ -532,7 +546,8 @@ class FrameEncoder:
                 kind = "mono"
             else:
                 kind = {C.STEREO_LR: "lr", C.STEREO_MS: "ms", C.STEREO_PER_BLOCK: "auto"}[self.stereo_mode]
-            planes = device_pipeline.encode_full_blocks(self, left, right, nfull, kind, self.device)
+            device = self.device if self.mesh is None else None  # a mesh names its own cards
+            planes = device_pipeline.encode_full_blocks(self, left, right, nfull, kind, device, mesh=self.mesh)
         return self._encode_frame(left, right, planes)
 
     def encode_frame(self, left, right=(), planes=None):

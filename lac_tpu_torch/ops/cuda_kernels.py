@@ -11,8 +11,9 @@ version; a tensor on a CUDA device launches the kernel (built from
 ``lac_tpu_torch/csrc`` on first use) or raises. There is no fallback
 from a CUDA tensor to the plain version. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else, so a run can show
-that its path went through the kernels; the counts are exact from any
-number of host threads (one lock around each increment).
+that its path went through the kernels, and ``card_launches[index][name]``
+the same on each card; the counts are exact from any number of host
+threads (one lock around each increment).
 """
 
 import threading
@@ -33,6 +34,9 @@ launches = {
 }
 
 
+# card index -> {kernel name: launches} (a mesh's cards each count their own)
+card_launches = {}
+
 _count_lock = threading.Lock()
 
 
@@ -40,11 +44,15 @@ def reset_launches():
     with _count_lock:
         for name in launches:
             launches[name] = 0
+        card_launches.clear()
 
 
-def _count(name):
+def _count(name, device=None):
     with _count_lock:  # += on a dict entry is a read and a write: not atomic between threads
         launches[name] += 1
+        if device is not None:
+            on_card = card_launches.setdefault(device.index, {})
+            on_card[name] = on_card.get(name, 0) + 1
 
 
 def _on_cpu(x, name, contiguous=True):
@@ -110,7 +118,7 @@ def k_cost_sums(u32_rows, head=None):
     out_head = torch.empty_like(out) if head else None
     _launch("lac_k_cost_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n), head or 0,
             out_head.data_ptr() if head else None, out.data_ptr())
-    _count("k_cost_sums")
+    _count("k_cost_sums", u32_rows.device)
     return (out_head, out) if head else out
 
 
@@ -136,7 +144,7 @@ def k_cost_partition_sums(u32_rows, max_p):
     out = torch.empty((rows, (2 << max_p) - 1, 17), dtype=torch.int32, device=u32_rows.device)
     _launch("lac_k_cost_partition_sums", u32_rows, u32_rows.data_ptr(), rows, n, max(u32_rows.stride(0), n),
             max_p, out.data_ptr())
-    _count("k_cost_sums")
+    _count("k_cost_sums", u32_rows.device)
     return [out[:, (1 << p) - 1 : (2 << p) - 1] for p in range(max_p + 1)]
 
 
@@ -159,7 +167,7 @@ def split_cumsums_u32(u32_rows):
     hi = torch.empty_like(u32_rows)
     lo = torch.empty_like(u32_rows)
     _launch("lac_split_cumsums_u32", u32_rows, u32_rows.data_ptr(), rows, n, hi.data_ptr(), lo.data_ptr())
-    _count("split_cumsums_u32")
+    _count("split_cumsums_u32", u32_rows.device)
     return hi, lo
 
 
@@ -174,7 +182,7 @@ def cumsum_u32(u32_rows):
     rows, n = u32_rows.shape
     out = torch.empty_like(u32_rows)
     _launch("lac_cumsum_u32", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
-    _count("cumsum_u32")
+    _count("cumsum_u32", u32_rows.device)
     return out
 
 
@@ -189,7 +197,7 @@ def prefix_max_i32(x_rows):
     rows, n = x_rows.shape
     out = torch.empty_like(x_rows)
     _launch("lac_prefix_max_i32", x_rows, x_rows.data_ptr(), rows, n, out.data_ptr())
-    _count("prefix_max_i32")
+    _count("prefix_max_i32", x_rows.device)
     return out
 
 
@@ -204,7 +212,7 @@ def suffix_min_i32(x_rows):
     rows, n = x_rows.shape
     out = torch.empty_like(x_rows)
     _launch("lac_suffix_min_i32", x_rows, x_rows.data_ptr(), rows, n, out.data_ptr())
-    _count("suffix_min_i32")
+    _count("suffix_min_i32", x_rows.device)
     return out
 
 
@@ -236,7 +244,7 @@ def k_after_stateful_fused(u32_rows):
                          f"and 16-byte aligned rows, got n={n}")
     out = torch.empty_like(u32_rows)
     _launch("lac_k_after_stateful", u32_rows, u32_rows.data_ptr(), rows, n, out.data_ptr())
-    _count("k_after_stateful_fused")
+    _count("k_after_stateful_fused", u32_rows.device)
     return out
 
 
@@ -327,5 +335,5 @@ def recurrence_restore(res, coeffs, order, shift, min_pred_n, valid_len=None):
     ok = torch.empty((lanes,), dtype=torch.bool, device=res.device)
     _launch("lac_recurrence_restore", res, res.data_ptr(), cs.data_ptr(), order.data_ptr(), shift.data_ptr(),
             min_pred_n.data_ptr(), valid_len.data_ptr(), lanes, n, out.data_ptr(), ok.data_ptr())
-    _count("recurrence_restore")
+    _count("recurrence_restore", res.device)
     return out, ok

@@ -30,9 +30,13 @@ Against ``lac_tpu.pool``: there is one backend, so the ``xp=numpy``
 fallback of ``encode_pooled`` and the ``is_jax``/``native_available``
 gates are gone (a failed native build raises); planes reach an encoder
 through ``FrameEncoder.encode_frame(left, right, planes)``, not through
-a private attribute; there is no warm-process mark; and waves are not
-grouped by mesh (one card; multi-card sharding comes with
-``parallel/mesh.py``).
+a private attribute; and there is no warm-process mark.
+
+A wave runs on its template encoder's mesh (:mod:`.parallel.mesh`): a
+template that :func:`run_group_wave` builds itself on the card takes
+:func:`.parallel.default_mesh`, every visible card when there are two
+or more, as the CLI does. :func:`encode_pooled` never puts items with
+different meshes in one wave.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -157,14 +161,15 @@ def run_group_wave(group, file_done, template_enc=None, device="cuda"):
     """Run ONE pooled device wave over every full block of ``group``
     (PreparedEncode items sharing ``.key``).
 
-    The wave takes its knobs (zero-run, partitioning, threads) and its
-    device from ``template_enc``; when omitted, one is built on
-    ``device`` from the first job's options. ``file_done(i, (payloads,
-    flags, uncertain))`` fires in group order as soon as file ``i``'s
-    blocks have emitted: the pipeline finishes chunks in block order, so
-    early files' host work (tail block, frame assembly, output write)
-    can overlap later chunks' device compute. The triple is what
-    ``FrameEncoder.encode_frame`` takes as ``planes``.
+    The wave takes its knobs (zero-run, partitioning, threads), its
+    device and its mesh from ``template_enc``; when omitted, one is built
+    on ``device`` from the first job's options, on the default mesh when
+    ``device`` is a card (:func:`.parallel.default_mesh`).
+    ``file_done(i, (payloads, flags, uncertain))`` fires in group order
+    as soon as file ``i``'s blocks have emitted: the pipeline finishes
+    chunks in block order, so early files' host work (tail block, frame
+    assembly, output write) can overlap later chunks' device compute.
+    The triple is what ``FrameEncoder.encode_frame`` takes as ``planes``.
     """
     from . import device_pipeline as DP
 
@@ -178,6 +183,10 @@ def run_group_wave(group, file_done, template_enc=None, device="cuda"):
         template_enc = FrameEncoder(12, g0.effective_mode, g0.wav[3], g0.wav[4], device=device)
         template_enc.set_partitioning_enabled(bool(g0.opts["partitioning"]))
         template_enc.set_thread_count(_resolve_threads(g0.opts["thread_count"]))
+        if check_device(device).type == "cuda":
+            from .parallel import default_mesh
+
+            template_enc.set_mesh(default_mesh())
 
     nxt = 0
 
@@ -194,8 +203,9 @@ def run_group_wave(group, file_done, template_enc=None, device="cuda"):
             file_done(nxt, (pp, fl, un))
             nxt += 1
 
-    pipe = DP.PlanePipeline(template_enc, None, None, total, group[0].kind, template_enc.device,
-                            views=(lview, rview))
+    mesh = template_enc.mesh
+    pipe = DP.PlanePipeline(template_enc, None, None, total, group[0].kind,
+                            template_enc.device if mesh is None else None, views=(lview, rview), mesh=mesh)
     pipe.run(progress_cb=release)
     if nxt != len(spans):
         raise RuntimeError("wave ended with unreleased files")
@@ -226,6 +236,8 @@ def encode_pooled(items, sample_rate, bit_depth, stereo_mode=2, device="cuda", m
     one full block is planned on ``device`` ("cuda" unless the caller
     asks for "cpu"; a missing card raises); tails and items without a
     full block take the host route, on up to ``max_workers`` threads.
+    ``encoder_opts`` are ``FrameEncoder`` setters by name: ``mesh=``
+    (:func:`.parallel.make_mesh`) spreads the waves over its cards.
     Returns frames in order; bytes identical to per-item
     :meth:`FrameEncoder.encode`.
     """
@@ -259,7 +271,9 @@ def encode_pooled(items, sample_rate, bit_depth, stereo_mode=2, device="cuda", m
         kind = "mono" if not len(right) else _MODE_KIND[stereo_mode]
         prep = PreparedEncode(parts=[], in_path="", wav=(left, right, 0, sample_rate, bit_depth), kind=kind,
                               nfull=nfull, dt=np.int16 if bit_depth == 16 else np.int32, key=(kind,))
-        groups.setdefault(kind, []).append((i, prep))
+        # items pool with items of the same mesh only: the wave runs on its
+        # template's (a tuple of devices compares by value)
+        groups.setdefault((kind, encs[i].mesh), []).append((i, prep))
 
     planes = {}  # item -> its full blocks' (payloads, flags, uncertain)
     for pairs in groups.values():

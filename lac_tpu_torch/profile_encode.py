@@ -1,6 +1,6 @@
 """Profile warm encodes of the 3-minute 44.1 kHz 16-bit stereo file on the card.
 
-    python -m lac_tpu_torch.profile_encode [--runs N]
+    python -m lac_tpu_torch.profile_encode [--runs N] [--mesh N]
 
 The file is the music-like corpus that chip_smoke.py encodes
 (:func:`gliding_stereo`, from a seed). After one cold encode, it
@@ -18,6 +18,12 @@ prints, beside the card's name and power limit:
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
   device time and launch count of each of the six kernels, by the name
   of its device function, and of everything else.
+
+With ``--mesh N`` the encode spreads its chunks over a mesh of N
+entries (:mod:`.parallel.mesh`): cards 0..N-1 when that many are
+visible, else N stand-ins that take the visible cards in turn (two on
+one card share it). Device busy, device time and the port's kernel
+launches are then also printed per card.
 """
 
 import argparse
@@ -30,6 +36,8 @@ import torch
 
 from . import device_pipeline
 from .encoder import FrameEncoder
+from .ops import cuda_kernels
+from .parallel import make_mesh
 
 
 def gliding_stereo(frames, sample_rate, depth, seed):
@@ -107,23 +115,32 @@ def _union_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--mesh", type=int, default=0, help="mesh entries (0: one card, no mesh)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     left, right = gliding_stereo(7_938_000, 44100, 16, 1)
+    cards = torch.cuda.device_count()
+    mesh = make_mesh([f"cuda:{i % cards}" for i in range(args.mesh)]) if args.mesh else None
+    devices = sorted({d.index for d in mesh}) if mesh else [torch.cuda.current_device()]
+
+    def synchronize():
+        for i in devices:
+            torch.cuda.synchronize(i)
 
     def encode():
-        torch.cuda.synchronize()
+        synchronize()
         t0 = time.perf_counter()
-        FrameEncoder(12, 2, 44100, 16, device="cuda").encode(left, right)
-        torch.cuda.synchronize()
+        FrameEncoder(12, 2, 44100, 16, device="cuda", mesh=mesh).encode(left, right)
+        synchronize()
         return time.perf_counter() - t0
 
-    encode()  # cold: kernel build, CUDA context
+    encode()  # cold: kernel build, CUDA contexts
     walls = [encode() for _ in range(args.runs)]
-    print(f"warm encode, 3-min 44.1 kHz 16-bit stereo: median {statistics.median(walls) * 1e3:.1f} ms "
+    where = f"a mesh of {len(mesh)} on cards {devices}" if mesh else "one card"
+    print(f"warm encode, 3-min 44.1 kHz 16-bit stereo, {where}: median {statistics.median(walls) * 1e3:.1f} ms "
           f"({min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f}, {args.runs} runs)")
 
     # one encode with the plan batches timed on the host and marked for the profiler
@@ -140,6 +157,7 @@ def main(argv=None):
 
     device_pipeline.plan_group = timed
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cuda_kernels.reset_launches()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             with torch.profiler.record_function("encode"):
@@ -182,6 +200,15 @@ def main(argv=None):
     print(f"device time, everything else: {device_ms['other']:.1f} ms in {count['other']} launches")
     print(f"device busy over the profiled encode: {busy:.1f} / {(hi - lo) / 1e3:.1f} ms = "
           f"{100 * busy / ((hi - lo) / 1e3):.1f}% ({len(dev)} device events; host wall {wall * 1e3:.1f} ms)")
+    span_ms = (hi - lo) / 1e3
+    for i in devices:
+        on = [e for e in events if e.device_type == cuda and e.name not in ranges_of and e.device_index == i]
+        card_busy = _union_us([(max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in on
+                               if e.time_range.end > lo and e.time_range.start < hi]) / 1e3
+        card_ms = sum(e.time_range.end - e.time_range.start for e in on) / 1e3
+        print(f"card {i}: busy {card_busy:.1f} / {span_ms:.1f} ms = {100 * card_busy / span_ms:.1f}%, "
+              f"device time {card_ms:.1f} ms in {len(on)} device events, "
+              f"launches of the port's kernels {cuda_kernels.card_launches.get(i, {})}")
 
 
 if __name__ == "__main__":

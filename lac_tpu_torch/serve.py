@@ -42,25 +42,29 @@ Where this module differs, and why:
   encode fails as the CLI does (``Error: ...``, rc 1) and the service
   goes on: ``decode`` is host-native. A ``--warm`` that fails answers
   id 0 with the error instead of ending the service.
-- :func:`warm_process` has no executable grid, no ``dtypes`` argument,
-  no ``LAC_TPU_WARM_THREADS``/``LAC_TPU_WARM_EXTRA`` and no mesh: a local
-  card loads no cached executables. It builds the native runtime and the
-  kernels, starts the context and runs the same synthetic encode.
+- :func:`warm_process` has no executable grid, no ``dtypes`` argument
+  and no ``LAC_TPU_WARM_THREADS``/``LAC_TPU_WARM_EXTRA``: a local card
+  loads no cached executables. It builds the native runtime and the
+  kernels, starts the context of every card of the default mesh
+  (:func:`.parallel.default_mesh`, every visible card when there are two
+  or more), plans one lane on each and runs the same synthetic encode on
+  the mesh. Pooled waves and per-job encodes run on the same mesh.
 - The device watchdog has no host fallback. The reference forces
   ``LAC_TPU_BACKEND=numpy`` and re-runs stuck jobs natively; the port has
   no such backend, and running them on the host would hide that the card
   failed. A wave past ``LAC_TPU_SERVE_DEVICE_TIMEOUT_S`` (default 600;
-  0 disables) marks the card sick for the life of the process: every job
-  of that wave and of its batch, and every encode accepted afterwards, is
+  0 disables) marks the service sick for the life of the process, on
+  every card it uses (a wave spans the whole mesh): every job of that
+  wave and of its batch, and every encode accepted afterwards, is
   answered ``{"ok": false, "rc": 1, "error": "device wave exceeded Ns;
   ..."}`` and none of them runs. ``decode``, ``ping`` and ``wait`` keep
   working.
 - The watchdog takes the running wave's start, jobs and sequence number
-  as one snapshot under a lock and declares the card sick only if that
-  wave is still running (the reference reads the start unlocked, so a
-  wave ending at the deadline as the next began could mark a healthy
-  card sick). It answers the jobs it rescues itself and never submits to
-  the worker pool, which may already be shut down.
+  as one snapshot under a lock and declares the service sick only if
+  that wave is still running (the reference reads the start unlocked, so
+  a wave ending at the deadline as the next began could mark a healthy
+  service sick). It answers the jobs it rescues itself and never submits
+  to the worker pool, which may already be shut down.
 - A pooled wave that raises writes one line to stderr and is counted
   (``_PoolBatcher.wave_failures``); its unreleased jobs still take the
   per-job CLI path, on the same device and with the same bytes.
@@ -135,15 +139,18 @@ def run_job(argv, device="cuda"):
 def warm_process(blocks=128, device="cuda"):
     """Make this process ready for jobs on ``device`` now: build the
     native runtime and, on the card, the kernels (at once), start the
-    CUDA context, then encode a synthetic stereo signal of ``blocks`` full
-    blocks and a tail in memory (the reference's signal, so the byte
-    count equals ``lac_tpu.serve.warm_process``'s). Returns that count.
+    CUDA context of every card of the default mesh and plan one
+    full-width lane on each, then encode a synthetic stereo signal of
+    ``blocks`` full blocks and a tail in memory, on the mesh (the
+    reference's signal, so the byte count equals
+    ``lac_tpu.serve.warm_process``'s). Returns that count.
     ``LAC_TPU_WARM_DEBUG=1`` writes each stage's seconds to stderr."""
     import numpy as np
 
     from . import resolve_device
     from .encoder import FrameEncoder
     from .format import constants as C
+    from .parallel import default_mesh, plan_group_sharded
     from .runtime import native
 
     dbg = os.environ.get("LAC_TPU_WARM_DEBUG") == "1"
@@ -167,6 +174,11 @@ def warm_process(blocks=128, device="cuda"):
         native.get_native()
     _stage("build")
     device = resolve_device(device)
+    mesh = default_mesh() if device.type == "cuda" else None
+    if mesh is not None:  # every card's context, kernels and tables, one lane each
+        n = C.MAX_BLOCK_SIZE
+        plan_group_sharded(mesh, np.zeros((len(mesh), n), np.int32), np.zeros((5, len(mesh), 13), np.int16),
+                           np.zeros((5, len(mesh)), bool), n)
     _stage("context")
     # full blocks take the plane pipeline (from device_pipeline.MIN_FULL_BLOCKS
     # on), the tail just under a full block the host route
@@ -174,7 +186,7 @@ def warm_process(blocks=128, device="cuda"):
     rng = np.random.RandomState(7)
     left = rng.randint(-(1 << 14), 1 << 14, n).astype(np.int32)
     right = (left // 2 + rng.randint(-(1 << 8), 1 << 8, n)).astype(np.int32)
-    nbytes = len(FrameEncoder(12, C.STEREO_PER_BLOCK, 44100, 16, device=device).encode(left, right))
+    nbytes = len(FrameEncoder(12, C.STEREO_PER_BLOCK, 44100, 16, device=device, mesh=mesh).encode(left, right))
     _stage("encode")
     return nbytes
 
@@ -206,7 +218,7 @@ class _PoolBatcher:
 
     Every job is answered exactly once: ``_claim`` decides which of the
     wave's release, the per-job path and the watchdog owns it. The
-    watchdog (see the module docstring) marks the card sick when a wave
+    watchdog (see the module docstring) marks the service sick when a wave
     outlives ``LAC_TPU_SERVE_DEVICE_TIMEOUT_S`` and answers every job the
     stuck wave and its batch still own with an error.
     """
@@ -250,8 +262,8 @@ class _PoolBatcher:
             return True
 
     def _sick_error(self):
-        return (f"device wave exceeded {self.device_timeout:g}s; the card is marked sick "
-                f"and encodes fail until the service restarts")
+        return (f"device wave exceeded {self.device_timeout:g}s; the service is marked sick on every card "
+                f"its waves use, and encodes fail until it restarts")
 
     def _refuse(self, job_id, t0):
         """Answer a claimed job with the sick-card error; it does not run."""
@@ -266,7 +278,7 @@ class _PoolBatcher:
             return self.wave_seq, self.wave_start, self.wave_jobs
 
     def _check_deadline(self, now, snapshot=None):
-        """Mark the card sick when the wave of ``snapshot`` (default: the
+        """Mark the service sick when the wave of ``snapshot`` (default: the
         one running now) has run ``device_timeout`` seconds at ``now`` and
         is still the running wave; then answer every job that wave, its
         batch and the queue still own. Returns whether it did."""
@@ -324,7 +336,7 @@ class _PoolBatcher:
             self.closed = True
             self.cv.notify_all()
         # a batcher thread stuck on a sick card never exits; it is a
-        # daemon, so stop waiting once the card is marked sick
+        # daemon, so stop waiting once the service is marked sick
         while self.thread.is_alive() and not self.device_sick:
             self.thread.join(timeout=1.0)
 

@@ -21,8 +21,9 @@ Peak resident memory is O(chunk), not O(file); output bytes are
 identical to ``FrameEncoder.encode`` by block independence. Each chunk
 is one ``FrameEncoder.encode`` call: with at least
 ``device_pipeline.MIN_FULL_BLOCKS`` full blocks it runs its own plane
-pipeline on the encoder's device, a shorter last chunk takes the host
-route.
+pipeline on the encoder's device, or over its mesh's cards (the CLI's
+encoder takes :func:`.parallel.default_mesh`), a shorter last chunk
+takes the host route.
 """
 
 import itertools
@@ -205,6 +206,7 @@ def encode_wav_to_lac(
     zero_run_enabled: bool = True,
     partitioning_enabled: bool = True,
     device="cuda",
+    mesh=None,
     info=None,
 ):
     """Encode a WAV file into a .lac file with O(chunk) memory.
@@ -214,9 +216,10 @@ def encode_wav_to_lac(
     trade-off; any value >= 1 yields byte-identical output. Pass a
     preconfigured ``FrameEncoder`` via ``encoder`` to reuse it across
     files (its sample_rate/bit_depth/stereo_mode must match the input;
-    its device is the one used). When omitted, one is built on
+    its device and mesh are the ones used). When omitted, one is built on
     ``device`` ("cuda" unless the caller asks for "cpu"; a missing card
-    raises) from the WAV header and the keyword settings. ``info``
+    raises), or over the cards of ``mesh``, from the WAV header and the
+    keyword settings. ``info``
     skips the RIFF walk when the caller already holds this path's
     ``scan_wav`` result.
 
@@ -239,7 +242,7 @@ def encode_wav_to_lac(
 
     effective_mode = stereo_mode if info.channels == 2 else 0
     if encoder is None:
-        encoder = FrameEncoder(12, effective_mode, info.sample_rate, info.bit_depth, device=device)
+        encoder = FrameEncoder(12, effective_mode, info.sample_rate, info.bit_depth, device=device, mesh=mesh)
         encoder.set_zero_run_enabled(zero_run_enabled)
         encoder.set_partitioning_enabled(partitioning_enabled)
         encoder.set_thread_count(thread_count)

@@ -411,7 +411,7 @@ def test_encode_batch_threads_queue_device_work_one_at_a_time(monkeypatch):
                 state["inside"] += 1
                 state["most"] = max(state["most"], state["inside"])
                 state["stages"] += 1
-                state["threads"].add(threading.get_ident())
+                state["threads"].add(threading.current_thread())
             try:
                 return stage(self)
             finally:
@@ -423,8 +423,10 @@ def test_encode_batch_threads_queue_device_work_one_at_a_time(monkeypatch):
         monkeypatch.setattr(device_pipeline._ChunkJob, name, watched(getattr(device_pipeline._ChunkJob, name)))
     got = batch.encode_batch(items, 44100, 16, device="cpu", max_workers=2)
     assert got == _serial(items, 44100, 16, 2)
-    # _serial ran the same stages again on this thread: 2 files x 2 chunks x 2 stages, twice
-    assert state == {"inside": 0, "most": 1, "stages": 16, "threads": state["threads"]} and len(state["threads"]) == 3
+    # _serial ran the same stages again: 2 files x 2 chunks x 2 stages, twice; every pipeline
+    # dispatches from a thread of its own (2 in the batch, side by side, and 2 in _serial)
+    assert state == {"inside": 0, "most": 1, "stages": 16, "threads": state["threads"]} and len(state["threads"]) == 4
+    assert all(t.name == "lac-dispatch-0-cpu" for t in state["threads"])
 
 
 def test_encode_batch_options_and_empty():
