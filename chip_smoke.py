@@ -70,9 +70,12 @@ on every card.
 11. decode on the card (``FrameDecoder(backend="device")``): kernel 7, the
     FIR/LPC restore, bit-exact against its plain version at the path's
     shapes (the FIR/LPC lanes of the noise files below, timed beside its
-    bound and its estimated serial floor) and on adversarial lanes (every LPC order
-    1..32 so that every tap-bound template runs, FIR lanes, ragged valid
-    lengths, lanes that leave int32, 24-bit residuals); phase 4's seven
+    bound, its chain floor measured with every lane at order 1 and the
+    floor estimated from the source) and on adversarial lanes (every LPC
+    order 1..32 so that every template runs, FIR lanes, ragged valid
+    lengths, lanes that leave int32, 24-bit residuals) and tile-edge lanes
+    (events at the kernel's tile edges, shift 40, rows whose length is not
+    a multiple of 4); phase 4's seven
     files and a 3-minute file of filtered noise through the device
     backend, PCM-equal to the input and to the native decode (launches
     per decode, warm walls of both backends, where a decode's time goes,
@@ -179,22 +182,24 @@ OPS_PER_ELEMENT = {
     "prefix_max_i32": 4,
     "suffix_min_i32": 4,
     "k_after_stateful_fused": 120,
-    # per restored sample, besides its taps: the residual from shared memory,
-    # the 64-bit shift (2), the prediction select (2), the 64-bit add (2),
-    # the int32 range test (3), the ok update (2), the select and the
-    # shared-memory store, the amortised tile load and store (2)
-    RESTORE: 16,
+    # per restored sample on csrc/restore.cu's fast way, besides its taps, in
+    # int32-instruction equivalents (a float64 instruction issues at half
+    # that rate: 64 lanes an SM, so it counts 2): the floor and the float64
+    # sample (two DADDs, 4), the biased residual (2), the flag (add and or),
+    # the 16-byte shared-memory load and device store a quarter each, the
+    # tile's copies and the run's set-up amortised (1)
+    RESTORE: 9,
 }
-# kernel 7, per tap of a restored sample: the 32x32->64 multiply-add (2) and
-# the history move (1); the work counted is each lane's valid samples times
-# its own order, what the data needs
-OPS_PER_TAP = 3
-# kernel 7's serial floor: one step's dependent chain in csrc/restore.cu is the
-# newest tap's multiply-add, the 64-bit shift, the prediction select, the
-# 64-bit add (2), the int32 range test (2) and the select of the stored sample,
-# 8 dependent instructions at about 4 cycles each at the 1.98 GHz boost clock
-# (an estimate from the source, not a measurement)
-SERIAL_CYCLES_PER_STEP = 8 * 4
+# kernel 7, per tap of a restored sample: one float64 multiply-add (2 int32
+# equivalents); the history rotates through registers (no move). The work
+# counted is each lane's valid samples times its own order, what the data needs
+OPS_PER_TAP = 2
+# kernel 7's serial floor: one step's dependent chain in csrc/restore.cu's fast
+# way is the newest tap's DFMA, the DADD that floors and the DADD back to the
+# sample, 3 dependent float64 instructions at about 8 cycles each at the 1.98
+# GHz boost clock (an estimate from the source; check_restore also measures
+# the chain: every lane at order 1)
+SERIAL_CYCLES_PER_STEP = 3 * 8
 SM_CLOCK_HZ = 1.98e9
 # one PyTorch call computing the same function, timed as a yardstick only
 LIBRARY_CALLS = {
@@ -1270,17 +1275,62 @@ def adversarial_restore_lanes(L, rng):
     return res.astype(np.int32), cs.astype(np.int32), *(v.astype(np.int32) for v in (od, sh, mp, nv))
 
 
+def tile_edge_restore_lanes(L, rng):
+    """Kernel 7's operands with events on its tile edges: a warp of the
+    12-tap template (tiles of ``K.RESTORE_TILE[12]`` samples), then one of
+    the 8-tap template. In each: lanes that leave int32 at a tile's first
+    sample, at its last and inside it; one flagged in range (replayed, stays
+    alive); one whose step wraps back into int32 (x = 2^32 - 32, caught by
+    the flag bound only); LPC lanes with valid lengths k*T - 1, k*T and k*T +
+    1; FIR lanes with valid lengths 0, 1, 2 and k*T + 1 (min_pred 2); a lane
+    with shift 40 (the careful way) that stops at T + 1; contractive LPC
+    lanes up to the template's order for the rest."""
+    lanes = []
+    step, wrap, fir, big = (np.zeros(33, np.int32) for _ in range(4))
+    step[1], wrap[1], fir[1:3] = 1 << 15, 1 << 20, (3, -1)  # x[n] = x[n - 1] + r[n]; 32 x[n - 1] + r[n]
+    for h in (12, 8):
+        T, warp = K.RESTORE_TILE[h], []
+        for at, value in ((3 * T, (1 << 31) - 1), (3 * T - 1, (1 << 31) - 1), (3 * T + T // 2 + 1, (1 << 31) - 1),
+                          (2 * T, (1 << 30) + 5)):
+            res = np.zeros(L, np.int64)
+            res[0], res[at] = 1, value
+            warp.append((res, step, 1, 15, 0, L))
+        res = np.zeros(L, np.int64)
+        res[4 * T - 1] = (1 << 27) - 1
+        warp.append((res, wrap, 1, 15, 0, L))
+        warp += [(rng.randint(-3000, 3000, L), q15_taps(rng, h, True), h, 15, 0, v)
+                 for v in (5 * T - 1, 5 * T, 5 * T + 1)]
+        warp += [(rng.randint(-30000, 30000, L), fir, 2, 2, 2, v) for v in (0, 1, 2, 5 * T + 1)]
+        big[1:5] = rng.randint(-(1 << 25), 1 << 25, 4)
+        warp.append((rng.randint(-(1 << 23), 1 << 23, L), big.copy(), 4, 40, 0, T + 1))
+        while len(warp) < 32:
+            od = 1 + len(warp) % h
+            warp.append((rng.randint(-3000, 3000, L), q15_taps(rng, od, True), od, 15, 0, L))
+        lanes += warp
+    res, cs, od, sh, mp, nv = (np.asarray(v) for v in zip(*lanes))
+    return res.astype(np.int32), cs.astype(np.int32), *(v.astype(np.int32) for v in (od, sh, mp, nv))
+
+
+def template_of(order, alive):
+    """csrc/restore.cu's template of each warp: the tap bound of its live lanes' largest order."""
+    return [next(h for h in K.RESTORE_TEMPLATES if h >= int(np.where(alive, order, 0)[w : w + 32].max()))
+            for w in range(0, len(order), 32)]
+
+
 def check_restore(files, rng):
     """Kernel 7 bit-exact against its plain version (every lane's samples and
     ok flag) at the path's shapes, the FIR/LPC lanes of each of ``files``
-    [(label, frame)], and on adversarial lanes; the path's shapes timed
-    (CUDA graph of 20 launches between CUDA events; the plain version once,
-    without a graph, as it is a loop of L steps) beside the bound and the
-    serial floor (an estimate from the source: printed, not in the record).
-    Returns the kernel record (the first file's lanes)."""
+    [(label, frame)], and on adversarial and tile-edge lanes; the path's
+    shapes timed (CUDA graph of 20 launches between CUDA events; the plain
+    version once, without a graph, as it is a loop of L steps) beside the
+    bound, the chain floor (the same residuals with every lane at order 1,
+    measured) and the serial floor estimated from the source (both printed,
+    not in the record). Returns the kernel record (the first file's lanes)."""
     cases = [(f"{label}: FIR/LPC lanes", restore_operands(frame), True) for label, frame in files]
     cases += [("adversarial lanes at L = 4096", adversarial_restore_lanes(4096, rng), False),
-             ("adversarial lanes at L = 1001", adversarial_restore_lanes(1001, rng), False)]
+              ("adversarial lanes at L = 1001", adversarial_restore_lanes(1001, rng), False),
+              ("tile-edge lanes at L = 4096", tile_edge_restore_lanes(4096, rng), False),
+              ("tile-edge lanes at L = 4098 (rows not 16-byte aligned)", tile_edge_restore_lanes(4098, rng), False)]
     err, shapes = 0, []  # the timed shapes, the record's first
     for label, ops, timed in cases:
         t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in ops]
@@ -1292,13 +1342,17 @@ def check_restore(files, rng):
         err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
         check(err == 0, f"{RESTORE} {label}: kernel differs from its plain version (max |diff| {err})")
         order, valid = ops[2], np.minimum(ops[5], L)
-        bands = sorted({next(h for h in K.TAP_BOUNDS if h >= int(order[w : w + 32].max()))
-                        for w in range(0, lanes, 32)})
+        alive = (order >= 0) & (order <= K.MAX_ORDER) & (ops[3] >= 0) & (ops[3] < 64)
+        bands = sorted(set(template_of(order, alive)))
         print(f"  {RESTORE:22s} {label} ({lanes}, {L}): exact on every lane; {int((~ok).sum())} lanes rejected; "
-              f"tap bounds {bands}")
+              f"templates {bands}")
+        if label.startswith("tile-edge"):
+            check(bands == [8, 12] and int((~ok).sum()) == 8, f"{label}: want templates 8 and 12 and 8 lanes that "
+                  f"leave int32")
+            continue
         if not timed:
-            check(bands == list(K.TAP_BOUNDS) and 0 < int((~ok).sum()) < lanes, f"{label}: want every template run "
-                  f"and some rejected lanes")
+            check(bands == list(K.RESTORE_TEMPLATES) and 0 < int((~ok).sum()) < lanes, f"{label}: want every "
+                  f"template run and some rejected lanes")
             continue
         check(bool(ok.all()), f"{label}: a lane of a real file was rejected")
         kern = lambda _: K.recurrence_restore(*t)  # noqa: E731
@@ -1312,12 +1366,21 @@ def check_restore(files, rng):
         ops_count = int((valid.astype(np.int64) * (OPS_PER_ELEMENT[RESTORE] + OPS_PER_TAP * order)).sum())
         bound_ms, bound_by = bound(RESTORE, t, (got, ok), ops=ops_count)
         floor_ms = L * SERIAL_CYCLES_PER_STEP / SM_CLOCK_HZ * 1e3  # an estimate, printed only
+        # the measured chain floor: the same residuals with every lane at order 1 (its chain and nothing else)
+        one = q15_taps(rng, 1, True)
+        chain = [t[0], torch.from_numpy(np.tile(one, (lanes, 1))).cuda(),
+                 *(torch.full_like(t[2], v) for v in (1, 15, 0)), t[5]]
+        check(all(torch.equal(a, b) for a, b in zip(K.recurrence_restore(*chain), K.recurrence_restore_plain(*chain))),
+              f"{label}, every lane at order 1: kernel differs from its plain version")
+        chain_ms = min(time_ms(lambda _: K.recurrence_restore(*chain), None) for _ in range(2))
         shapes.append({"label": label, "lanes": lanes, "L": L, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by})
-        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one call, no graph), bound {bound_ms:.4f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; serial floor {floor_ms:.4f} ms "
-              f"({L} steps x {SERIAL_CYCLES_PER_STEP} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz, estimated from the "
-              f"source), {100 * floor_ms / ms:.0f}% of it (CUDA graph of 20 launches, CUDA events)")
+        print(f"    kernel {ms:.4f} ms = {ms * 1e-3 * SM_CLOCK_HZ / L:.1f} cycles a sample at "
+              f"{SM_CLOCK_HZ / 1e9:.2f} GHz, plain {plain_ms:.1f} ms (one call, no graph), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; chain floor measured {chain_ms:.4f} ms (every "
+              f"lane at order 1, bit-exact: {chain_ms * 1e-3 * SM_CLOCK_HZ / L:.1f} cycles a sample), "
+              f"{100 * chain_ms / ms:.0f}% of it; estimated {floor_ms:.4f} ms ({L} steps x {SERIAL_CYCLES_PER_STEP} "
+              f"cycles, from the source), {100 * floor_ms / ms:.0f}% of it (CUDA graph of 20 launches, CUDA events)")
     return {"max_abs_err": float(err), "library_ms": None,
             **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 

@@ -38,12 +38,17 @@ winners, every order from one read).
 rows (adversarial, near-threshold and window-, warp- and tile-edge rows)
 and on audio-like codes (geometric, mean 1000).
 
-``--restore`` (kernel 7): on the FIR/LPC lanes of chip_smoke.py's
-3-minute filtered-noise file, on chip_smoke.py's adversarial lanes, and on
-the same file's residuals with every lane at one order (4, 8, 12, 16 and
-32: one tap-bound template each), beside chip_smoke.py's estimated serial
-floor and with the cycles one restored sample takes at the 1.98 GHz boost
-clock.
+``--restore`` (kernel 7): the other sources first in the turns (other,
+this, this, other); on the FIR/LPC lanes of chip_smoke.py's 3-minute
+filtered-noise file, on chip_smoke.py's adversarial and tile-edge lanes,
+and on the same file's residuals with every lane at one order (1: the
+chain alone; 2, 4, 8, 12, 16 and 32: one template each), beside
+chip_smoke.py's estimated serial floor and with the cycles one restored
+sample takes at the 1.98 GHz boost clock; and the warm device-backend
+decode of that file with each source's kernel 7 in turns. This tree's
+source is also built once per template (``-DLAC_RESTORE_ONE_TEMPLATE``) for
+a SASS census: the instructions a sample on the fast way and on the careful
+way.
 """
 
 import argparse
@@ -335,13 +340,108 @@ def ab_k_after(chip_smoke, other, out_dir, rng, sass_dir):
                chip_smoke.bound("k_after_stateful_fused", x, want)[0])
 
 
+def _sass_loops(lib, kernel):
+    """The loops of ``kernel`` in ``lib``'s SASS (a branch back to an earlier
+    instruction): [(instructions, float64 multiplies (DFMA, DMUL), IMAD.WIDE
+    count, opcode counts)], NOPs left out."""
+    tool = os.path.join(os.path.dirname(_cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    fn = next(f for f in sass.split("Function :")[1:] if kernel in f.splitlines()[0])
+    instrs, labels = [], {}
+    for line in fn.splitlines():
+        label = re.match(r"^\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(instrs)
+            continue
+        m = re.match(r"^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and not m.group(2).strip().startswith("NOP"):
+            instrs.append((int(m.group(1), 16), re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())))
+    at = {addr: i for i, (addr, _) in enumerate(instrs)}
+    loops = []
+    for i, (_, text) in enumerate(instrs):
+        target = re.match(r"BRA[.\w]*\s+(?:!?U?P\w+,\s*)?(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", text)
+        if not target:
+            continue
+        name = target.group(1)
+        j = labels.get(name) if name.startswith(".L") else at.get(int(name, 16))
+        if j is not None and j <= i:
+            ops = [t.split()[0] for _, t in instrs[j : i + 1]]
+            fmul = sum(op.startswith(("DFMA", "DMUL")) for op in ops)
+            loops.append((len(ops), fmul, ops.count("IMAD.WIDE"), {op: ops.count(op) for op in set(ops)}))
+    return loops
+
+
+def restore_sass_census(out_dir):
+    """Per template of this tree's csrc/restore.cu (one library each, built
+    with -DLAC_RESTORE_ONE_TEMPLATE=H): SASS instructions a sample on the
+    fast way (the unrolled body: the loop with the most IMAD.WIDE), in the
+    4-sample fast groups and on the careful way (one sample an iteration),
+    with the fast body's opcodes a sample. Each is the innermost loop (the
+    fewest instructions) with the multiplies of its kind: H float64 ones a
+    sample for at least 32 samples (the body) or for 4 (a group), H
+    IMAD.WIDE for one (a careful step)."""
+    builds = {f"H = {h}": (CSRC / "restore.cu", (f"-DLAC_RESTORE_ONE_TEMPLATE={h}",)) for h in K.RESTORE_TEMPLATES}
+    libs = _build_all("restore_census", builds, out_dir, None)
+    print("SASS instructions a sample, this tree's restore.cu, by template (fast body / fast 4-sample group / "
+          "careful step):")
+    for h, (side, lib) in zip(K.RESTORE_TEMPLATES, libs.items()):
+        loops = _sass_loops(lib, "restore_kernel")
+
+        def innermost(kind, lo, hi):
+            return min((lp for lp in loops if lo <= lp[kind] < hi), key=lambda lp: lp[0], default=None)
+
+        body, quad, step = innermost(1, 32 * h, 1 << 30), innermost(1, 4 * h, 4 * h + 4), innermost(2, h, 2 * h)
+        samples = body[1] // h
+        ops = ", ".join(f"{op} {n / samples:.2f}" for op, n in sorted(body[3].items(), key=lambda kv: -kv[1]))
+        print(f"  {side}: fast body {body[0] / samples:.2f} ({samples} samples, {body[0]} instructions), "
+              f"fast group {quad[0] / 4 if quad else float('nan'):.2f}, careful {step[0] if step else 'n/a'}; "
+              f"fast body a sample: {ops}")
+
+
+class _WithRestore:
+    """The port's kernel library with another source's kernel 7 entry."""
+
+    def __init__(self, base, entry):
+        self._base, self.lac_recurrence_restore = base, entry
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+
+def restore_decode_walls(chip_smoke, libs, frame, left, right):
+    """Warm walls of ``FrameDecoder(backend="device").decode(frame)`` with each
+    library's kernel 7 in turns (the sides, then reversed), PCM held to the input."""
+    from .decoder import FrameDecoder
+
+    base, dec, entries = _cuda_lib.load(), FrameDecoder(backend="device"), {}
+    for side, path in libs.items():
+        fn = ctypes.CDLL(str(path)).lac_recurrence_restore
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        entries[side] = fn
+    walls = {}
+    try:
+        for side in list(entries) + list(reversed(entries)):
+            _cuda_lib._lib = _WithRestore(base, entries[side])
+            dec.decode(frame)
+            got, wall, _ = chip_smoke.timed_on_card(lambda: dec.decode(frame))
+            chip_smoke.check(np.array_equal(got[0], left) and np.array_equal(got[1], right),
+                             f"device decode with {side}'s kernel 7: PCM differs from the input")
+            walls.setdefault(side, []).append(wall)
+    finally:
+        _cuda_lib._lib = base
+    print("  device decode of the 3-minute noise file, warm, PCM-exact (s): "
+          + "; ".join(f"{side} {a:.4f} / {b:.4f}" for side, (a, b) in walls.items()))
+
+
 def ab_restore(chip_smoke, others, out_dir, rng, sass_dir):
     from .encoder import FrameEncoder
     from .profile_encode import filtered_noise_stereo
 
-    builds = {"this": (CSRC / "restore.cu", ())}
-    builds.update((f"other{i}", (src, ())) for i, src in enumerate(others, 1))
+    builds = {f"other{i}": (src, ()) for i, src in enumerate(others, 1)}
+    builds["this"] = (CSRC / "restore.cu", ())  # turns: the others, this, this, the others
     libs = _build_all("restore", builds, out_dir, sass_dir, "restore_kernel")
+    restore_sass_census(out_dir)
 
     def entry(path):
         fn = _bind(ctypes.CDLL(str(path)), "lac_recurrence_restore", "ppppppiipp")
@@ -356,11 +456,14 @@ def ab_restore(chip_smoke, others, out_dir, rng, sass_dir):
         return run
 
     sides = {side: entry(lib) for side, lib in libs.items()}
-    frame = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(*filtered_noise_stereo(7_938_000, 44100, 16, 4))
+    noise = filtered_noise_stereo(7_938_000, 44100, 16, 4)
+    frame = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(*noise)
+    restore_decode_walls(chip_smoke, libs, frame, *noise)
     path = chip_smoke.restore_operands(frame)
     inputs = {"3 min filtered noise, FIR/LPC lanes": path,
-              "adversarial lanes": chip_smoke.adversarial_restore_lanes(4096, rng)}
-    for h in K.TAP_BOUNDS:
+              "adversarial lanes": chip_smoke.adversarial_restore_lanes(4096, rng),
+              "tile-edge lanes": chip_smoke.tile_edge_restore_lanes(4096, rng)}
+    for h in (1, *K.RESTORE_TEMPLATES):  # order 1: the chain and nothing else; then every template
         res = path[0]
         cs = np.stack([chip_smoke.q15_taps(rng, h, True) for _ in range(len(res))])
         vec = np.full(len(res), h, np.int32)
@@ -376,7 +479,7 @@ def ab_restore(chip_smoke, others, out_dir, rng, sass_dir):
         best = _turns(chip_smoke, f"{label} ({lanes}, {L})", t, sides, want,
                       chip_smoke.bound(chip_smoke.RESTORE, t, want, ops=work)[0],
                       extra=f"; serial floor {floor_ms:.4f} ms (an estimate from the source)")
-        print("    cycles per sample: " + ", ".join(f"{side} {ms * 1e-3 * chip_smoke.SM_CLOCK_HZ / L:.0f}"
+        print("    cycles per sample: " + ", ".join(f"{side} {ms * 1e-3 * chip_smoke.SM_CLOCK_HZ / L:.1f}"
                                                      for side, ms in best.items()))
 
 

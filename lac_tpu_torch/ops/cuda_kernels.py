@@ -252,8 +252,12 @@ def k_after_stateful_fused(u32_rows):
 # csrc/restore.cu; replaces the vmapped lax.scan of predictors.recurrence_restore
 # (lac_tpu/ops/predictors.py:243), XLA code that eager torch cannot run as one launch
 
-TAP_BOUNDS = (4, 8, 12, 16, 32)  # the kernel's templates; the JAX scan's static tap bounds
+TAP_BOUNDS = (4, 8, 12, 16, 32)  # the JAX scan's static tap bounds
 MAX_ORDER = TAP_BOUNDS[-1]
+# csrc/restore.cu's per-warp templates (the tap bound H, from the largest order of the warp's
+# 32 lanes; 2 for FIR-only warps) and the tile of samples each walks a row in (tile_len)
+RESTORE_TEMPLATES = (2, *TAP_BOUNDS)
+RESTORE_TILE = {h: 108 if h == 12 else 128 for h in RESTORE_TEMPLATES}
 
 
 def _restore_operands(res, coeffs, order, shift, min_pred_n, valid_len):
@@ -329,6 +333,7 @@ def recurrence_restore(res, coeffs, order, shift, min_pred_n, valid_len=None):
     if _on_cpu(res, "recurrence_restore"):
         return recurrence_restore_plain(res, coeffs, *vecs)
     lanes, n = res.shape
+    res = res.contiguous()  # the kernel steps rows by n
     cs = coeffs[:, : MAX_ORDER + 1].to(torch.int32).contiguous()
     order, shift, min_pred_n, valid_len = (v.to(torch.int32).contiguous() for v in vecs)
     out = torch.empty((lanes, n), dtype=torch.int32, device=res.device)

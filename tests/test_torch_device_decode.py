@@ -13,6 +13,8 @@ chip_smoke.py.
 """
 
 import os
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -160,6 +162,216 @@ def test_kernel7_on_a_cpu_tensor_takes_the_plain_version():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[0].dtype == torch.int32  # every kept value fits: half the bytes of the JAX function's int64
     assert K.launches == dict.fromkeys(K.launches, 0)
+
+
+# ---- a numpy model of csrc/restore.cu's walk over a row
+
+WARP = 32
+RESTORE_CU = pathlib.Path(K.__file__).resolve().parent.parent / "csrc" / "restore.cu"
+
+
+def _wrap32(v):
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _flag_bound(tap_sum, sh):
+    """csrc/restore.cu's B: the largest b <= 30 with tap_sum * 2^b <= (2^31 - 2^b) << sh and
+    tap_sum * 2^b <= 2^52, else -1. While a lane's samples lie in [-2^b, 2^b), its float64 sums
+    are exact and a step that leaves int32 wraps outside that range."""
+    return next((b for b in range(30, -1, -1)
+                 if tap_sum <= (((1 << 31) - (1 << b)) << sh) >> b and tap_sum <= 1 << (52 - b)), -1)
+
+
+def _kernel7_model(res, coeffs, order, shift, min_pred, valid, tile):
+    """numpy model of csrc/restore.cu: each warp of 32 lanes walks its rows
+    in tiles of ``tile`` samples. Inside a tile, a fast run covers the whole
+    4-sample groups over which every lane of the warp either predicts
+    (alive, shift < 32, flag bound found, past min_pred_n, before
+    valid_len) or passes residuals through (stopped or past valid_len: taps
+    zeroed); it keeps low words only and ORs x + 2^B into a flag. A flagged
+    lane replays the run the careful way from the history saved at its
+    start. Anything else is one careful group of 4 (the exact per-sample
+    logic). Rows whose length is not a multiple of 4 go the careful way
+    throughout. Returns (samples int64, ok, counts of fast, careful and
+    replayed samples)."""
+    res = np.asarray(res, np.int64)
+    lanes, n = res.shape
+    out, ok = res.copy(), np.zeros(lanes, bool)
+    counts = dict.fromkeys(("fast", "careful", "replayed"), 0)
+    for w0 in range(0, lanes, WARP):
+        sl = slice(w0, min(w0 + WARP, lanes))
+        od, sh, mp = (np.asarray(v[sl], np.int64) for v in (order, shift, min_pred))
+        nv = np.minimum(np.asarray(valid[sl], np.int64), n)
+        alive = (od >= 0) & (od <= 32) & (sh >= 0) & (sh < 64)
+        sh = np.where(alive, sh, 0)
+        c = np.where(alive[:, None] & (np.arange(32)[None, :] < od[:, None]),
+                     np.asarray(coeffs[sl], np.int64)[:, 1:33], 0)
+        B = np.array([_flag_bound(int(np.abs(ci).sum()), int(s)) if a and s < 32 else -1
+                      for ci, s, a in zip(c, sh, alive)])
+        bias = np.where(B >= 0, np.left_shift(1, np.maximum(B, 0)), 0)
+        mask = np.where(B >= 0, ~(np.left_shift(2, np.maximum(B, 0)) - 1) & 0xFFFFFFFF, 0)
+        passing, h = ~alive, np.zeros_like(c)  # h[:, 0] is the newest sample
+        rows = res[sl]
+
+        def careful(sel, src, k0, k1, n0, row):
+            nonlocal alive
+            for j in range(k0, k1):
+                rn = src[:, j]
+                acc = (c * h).sum(axis=1)
+                s = rn + np.where(n0 + j >= mp, acc >> sh, 0)
+                in_range = (s >= C.INT32_MIN) & (s <= C.INT32_MAX)
+                active = alive & (n0 + j < nv)
+                alive = np.where(sel, alive & (in_range | ~active), alive)
+                v = np.where(active & in_range, s, rn)
+                row[sel, j] = v[sel]
+                h[sel] = np.concatenate([v[:, None], h[:, :-1]], axis=1)[sel]
+
+        if n % 4:  # no 16-byte copies: the careful way throughout
+            row = rows.copy()
+            careful(np.ones(len(od), bool), rows, 0, n, 0, row)
+            counts["careful"] += n * len(od)
+            out[sl], ok[sl] = row, alive
+            continue
+        for n0 in range(0, n, tile):
+            cnt = min(tile, n - n0)
+            row = rows[:, n0 : n0 + cnt].copy()  # the tile's samples
+            k = 0
+            while k < cnt:
+                stops = ~passing & (~alive | (n0 + k >= nv))
+                passing |= stops
+                c[stops], mask[stops] = 0, 0
+                end = np.where(passing, cnt, np.where((B >= 0) & (n0 + k >= mp), np.minimum(nv - n0, cnt), k))
+                e = k + ((int(end.min()) - k) & ~3)
+                if e > k:
+                    hs = h.copy()
+                    f = np.bitwise_or.reduce((h + bias[:, None]) & 0xFFFFFFFF, axis=1)
+                    for j in range(k, e):
+                        x = _wrap32(row[:, j] + _wrap32((c * h).sum(axis=1) >> sh))
+                        row[:, j] = x
+                        f |= (x + bias) & 0xFFFFFFFF
+                        h = np.concatenate([x[:, None], h[:, :-1]], axis=1)
+                    counts["fast"] += e - k
+                    bad = (f & mask) != 0
+                    if bad.any():
+                        h[bad] = hs[bad]
+                        careful(bad, rows[:, n0:], k, e, n0, row)
+                        counts["replayed"] += (e - k) * int(bad.sum())
+                    k = e
+                else:
+                    careful(np.ones(len(od), bool), row, k, min(k + 4, cnt), n0, row)
+                    counts["careful"] += min(k + 4, cnt) - k
+                    k = min(k + 4, cnt)
+            out[sl, n0 : n0 + cnt] = row
+        ok[sl] = alive
+    return out, ok, counts
+
+
+def _step_lane(L, at, value):
+    """x[n] = x[n - 1] + r[n] from x[0] = 1: leaves int32 at ``at`` when ``value`` is 2^31 - 1."""
+    res = np.zeros(L, np.int64)
+    res[0], res[at] = 1, value
+    c = np.zeros(33, np.int64)
+    c[1] = 1 << 15
+    return res, c, 1, 15, 0, L
+
+
+def _wrap_lane(L, at):
+    """x[n] = 32 x[n - 1] + r[n] with x[at - 1] = 2^27 - 1: x[at] is 2^32 - 32, whose low word -32
+    lies in range. Only a flag bound no larger than the source's (B = 25 here) sees it coming."""
+    res = np.zeros(L, np.int64)
+    res[at - 1] = (1 << 27) - 1
+    c = np.zeros(33, np.int64)
+    c[1] = 1 << 20
+    return res, c, 1, 15, 0, L
+
+
+def _fir_lane(rng, L, valid):
+    c = np.zeros(33, np.int64)
+    c[1], c[2] = C.FIR_TAPS
+    return rng.randint(-30000, 30000, L), c, C.FIR_ORDER, C.FIR_SHIFT, C.FIR_ORDER, valid
+
+
+def _lpc_lane(rng, L, od, valid=None, scale=3000):
+    taps = _taps(rng, od) if od else np.zeros(33, np.int64)
+    return rng.randint(-scale, scale, L), taps, od, 15, 0, L if valid is None else valid
+
+
+def _tile_edge_lanes(case, T, L, seed=3):
+    """Lanes whose events sit on the model's tile edges (tile ``T``; L a few
+    tiles and a ragged last one)."""
+    rng = np.random.RandomState(seed)
+    edges = (2 * T - 1, 2 * T, 2 * T + 1)
+    if case == "leaves int32":  # at a tile's first sample, its last, inside it; and in range but flagged
+        lanes = [_step_lane(L, at, C.INT32_MAX) for at in (2 * T, 2 * T - 1, 2 * T + T // 2 + 1, L - 1)]
+        lanes += [_wrap_lane(L, at) for at in (2 * T, 3 * T - 1)]
+        lanes += [_step_lane(L, at, (1 << 30) + 5) for at in (T, 3 * T - 1)]  # flags, replays, stays alive
+        lanes += [_lpc_lane(rng, L, od) for od in (3, 8)]
+    elif case == "valid_len":  # at k*T - 1, k*T, k*T + 1; FIR at 0, 1 and 2 (min_pred 2)
+        lanes = [_lpc_lane(rng, L, od, v) for od in (2, 12) for v in edges]
+        lanes += [_fir_lane(rng, L, v) for v in (0, 1, 2, 3, 4, 5, *edges, L)]
+    elif case == "shift >= 32":  # the careful way until these lanes stop, then fast
+        lanes = []
+        for sh, nv in zip((31, 32, 40, 63), (L, *edges)):
+            res, c, od, _, mp, _ = _lpc_lane(rng, L, 4, scale=1 << 23)
+            c[1:5] = rng.randint(-(1 << 25), 1 << 25, 4)
+            lanes.append((res, c, od, sh, mp, nv))
+        lanes += [_lpc_lane(rng, L, 6), _fir_lane(rng, L, L)]
+    elif case == "orders 0..32":
+        lanes = [_lpc_lane(rng, L, od, (L, 2 * T, od, 0)[od % 4]) for od in range(33)]
+    else:  # any int16 taps and 24-bit residuals: most of these leave int32 somewhere
+        lanes = [(rng.randint(-(1 << 23), 1 << 23, L), _taps(rng, od, stable=False), od, 15, 0, L)
+                 for od in (1, 2, 5, 12, 16, 31)]
+        lanes += [_lpc_lane(rng, L, 12, scale=1 << 23) for _ in range(3)]
+    res, cs, od, sh, mp, nv = (np.asarray(v) for v in zip(*lanes))
+    return res.astype(np.int32), cs, od, sh, mp, nv
+
+
+@pytest.mark.parametrize("ragged", [4, 3], ids=["L%4==0", "L%4==3"])
+@pytest.mark.parametrize("T", [16, 32])
+@pytest.mark.parametrize("case", ["leaves int32", "valid_len", "shift >= 32", "orders 0..32", "any int16 taps"])
+def test_kernel7_tile_walk_model_matches_plain_and_lac_tpu(case, T, ragged):
+    """The kernel's walk (fast runs, deferred flag, careful replay, first and
+    ragged tiles; the careful way throughout for L % 4 != 0) gives the plain
+    version's samples and ok flags, and lac_tpu's numpy row loop's. L is
+    never a multiple of T."""
+    res, cs, od, sh, mp, nv = _tile_edge_lanes(case, T, 5 * T + ragged)
+    got, ok, counts = _kernel7_model(res, cs, od, sh, mp, nv, T)
+    want, w_ok = K.recurrence_restore_plain(_t(res), _t(cs), _t(od), _t(sh), _t(mp), _t(nv))
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(ok, w_ok.numpy())
+    ref, r_ok = ref_predictors.recurrence_restore(res, cs, od, sh, mp, valid_len=nv, xp=np)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(ok, r_ok)
+    if ragged % 4:
+        assert counts["fast"] == 0 and counts["careful"] == res.size
+    else:
+        assert counts["fast"] > 0
+        assert counts["careful"] > 0 or case not in ("valid_len", "shift >= 32", "orders 0..32")
+    if case in ("leaves int32", "any int16 taps"):
+        assert counts["replayed"] > 0 or ragged % 4
+        assert 0 < (~ok).sum() < len(ok)
+    if case == "leaves int32":
+        assert ok.tolist() == [False] * 6 + [True] * 4
+
+
+def test_kernel7_flag_bound_covers_audio_taps():
+    """Q15 taps of any order up to 32 leave room for 24-bit samples (B >= 24), FIR's for B = 30;
+    a shift of 32 or more, or taps too large for any B, never run the fast way."""
+    assert _flag_bound(32 * ((1 << 15) - 1), 15) >= 24
+    assert _flag_bound(sum(abs(t) for t in C.FIR_TAPS), C.FIR_SHIFT) == 30
+    assert _flag_bound(1 << 15, 15) == 30 and _flag_bound(0, 0) == 30
+    assert _flag_bound(1 << 40, 2) == -1
+
+
+def test_kernel7_tiles_mirror_the_source():
+    """cuda_kernels.RESTORE_TEMPLATES / RESTORE_TILE (chip_smoke.py's tile-edge lanes) are the source's."""
+    src = RESTORE_CU.read_text()
+    tile = re.search(r"constexpr int tile_len\(int H\) \{ return H == (\d+) \? (\d+) : (\d+); \}", src)
+    assert tile, "tile_len not found in restore.cu"
+    special, t_special, t_other = map(int, tile.groups())
+    assert K.RESTORE_TILE == {h: t_special if h == special else t_other for h in K.RESTORE_TEMPLATES}
+    picks = [int(m) for m in re.findall(r"restore_lane<(\d+)>\(a, s, smem\)", src)]
+    assert tuple(picks) == K.RESTORE_TEMPLATES
 
 
 @XPS
