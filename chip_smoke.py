@@ -2,7 +2,7 @@
 """Smoke run of the lac_tpu_torch port on one CUDA card, and of its mesh
 on every card.
 
-    python3 chip_smoke.py           # phases 1-12; one card is enough
+    python3 chip_smoke.py           # phases 1-13; one card is enough
     python3 chip_smoke.py --mesh    # phases 1-3 and 12 alone, on every visible card
 
 1. device: the card's name and power limit; the host must be x86-64
@@ -38,7 +38,8 @@ on every card.
    launch counts equal to the file-by-file run's; warm wall, frames/s
    and peak device memory of each; a mono batch, a 96 kHz 24-bit batch
    and a wave of under 8 blocks; a fresh process whose first call is a
-   threaded ``encode_batch`` that builds both libraries;
+   threaded ``encode_batch`` that builds both libraries (with
+   ``LAC_TPU_COLD_BLOCKS=0``: its clips would take the host route);
 7. the long-file path: a 2100-block WAV through the CLI's streaming route
    (in this process for the launch counts, then ``python -m
    lac_tpu_torch.cli encode`` in a fresh process), bytes equal to the
@@ -47,8 +48,12 @@ on every card.
    (``LAC_TPU_STREAM_BLOCKS=0``);
 8. the cold CLI: a golden-size WAV through ``python -m lac_tpu_torch.cli
    encode`` in a fresh process starts no CUDA context (wall and peak RSS
-   beside the same call with the context started first); an input of 8
-   full blocks starts one;
+   beside the same call with the context started first), and neither does
+   an input of 8 full blocks (the cold route: at most
+   ``LAC_TPU_COLD_BLOCKS`` blocks, ``encoder.COLD_BLOCKS`` by default,
+   stay on the host in a process that has not used the card); the
+   8-block input with ``LAC_TPU_COLD_BLOCKS=0`` and an input of one block
+   more than the default start one;
 9. checks that neither jax nor any lac_tpu module was imported (at the end);
 10. the service (``serve.py``) on the card: phase 6's clips written as WAVs
     and encoded through ``serve.serve`` in this process, pooled
@@ -101,7 +106,31 @@ on every card.
     card; busy share per card from torch.profiler), the clips through
     ``serve.serve(["--workers=4"])`` on the default mesh against
     ``LAC_TPU_MESH=0``, and the long WAV through the CLI's streaming route
-    in fresh processes, on and off.
+    in fresh processes with ``LAC_TPU_CLI_MESH=1`` (the CLI's one-shot
+    encode runs on one card unless asked) and ``0``;
+
+13. the group route (``encoder._GroupJob``: the lanes the plane pipeline
+    does not take, planned on the card) in this warm process: phase 4's
+    inputs cut under 8 full blocks and the clip batch's three clips under
+    8 full blocks through ``FrameEncoder.encode``, which leaves their
+    lanes to the host route while the native runtime is there (bytes equal
+    to ``encode_frame``'s, no plan and no launch on the card, walls in
+    turns); the same lanes through ``ChannelBlockEncoder(device="cuda")``
+    ``.encode_lanes``, bytes equal to the host route's, launches
+    accounted for by the group route's timed shapes (``"group"`` in
+    ``launches_by_path``), warm walls in turns against the host route;
+    one batch at each device cap (128 lanes of 16384, 1024 of 256) the
+    same way; the 16 goldens through ``FrameEncoder.encode``;
+    16384-sample lane groups outside the 24-bit domain through
+    ``ChannelBlockEncoder(device="cuda")`` (the order ladder), equal to
+    the host route's; a fresh process with ``LAC_TPU_NO_NATIVE=1`` and
+    ``LAC_TPU_TIMING=1`` that encodes the 3-minute file, the cuts and four
+    goldens through the group route and the token packer on the card,
+    bytes equal to this process's, one ``[lac-timing]`` line per encode
+    with the group route's phases, and decodes them with the Python
+    reader, PCM-exact (walls, ``ship`` bytes copied back per batch, peak
+    device memory); a fresh process with ``LAC_TPU_TIMING=1`` whose
+    plane-pipeline and host-route encodes print their phases.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -125,9 +154,11 @@ import numpy as np
 import torch
 
 from lac_tpu_torch import cli, device_decode, device_pipeline, pool, serve, stream
+from lac_tpu_torch import encoder as encoder_mod
 from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import DecodeError, FrameDecoder
-from lac_tpu_torch.encoder import FrameEncoder, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
+from lac_tpu_torch.encoder import (ChannelBlockEncoder, FrameEncoder, lpc_candidates_from_lags, plan_group,
+                                   plan_inputs_to_torch)
 from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
@@ -144,6 +175,11 @@ BLOCK = 16384
 LANES = 256  # plan batch at chunk width K = 256
 ROWS = LANES * 11  # candidate rows of one plan batch
 PROBE_ROWS = 12 * LANES * 11  # probe plan batch (12 probe lanes per block)
+GROUP_LANES = 128  # the group route's device batch cap at 16384 samples (encoder.ChannelBlockEncoder)
+GROUP_PROBE_LANES = 1024  # ... and at 256
+# plan batches on the card by (caller, row length): the plane pipeline's and the group route's
+PLAN_KINDS = {("pipe", BLOCK): "full", ("pipe", 256): "probe",
+              ("group", BLOCK): "group-full", ("group", 256): "group-probe"}
 
 KERNELS = {  # name -> (source, the Pallas function it replaces)
     "k_cost_sums": ("lac_tpu_torch/csrc/kcost.cu", "lac_tpu/ops/pallas_kernels.py:81"),
@@ -294,6 +330,8 @@ def kernel_cases(rng, dev):
     odd = adversarial_codes(37, 1001, rng)
     stack_t, winners_t, probes_t, pw_t = up(stack), up(winners), up(probes), up(probe_winners)
     full, probe = ("full", 1), ("probe", 1)
+    gfull, gprobe = ("group-full", 1), ("group-probe", 1)  # the group route's batches at its caps
+    g_rows, gp_rows = GROUP_LANES * 11, GROUP_PROBE_LANES * 11
 
     def with_head(head):  # head sums and row sums from one launch
         return (lambda x: K.k_cost_sums(x, head=head)), (lambda x: K.k_cost_sums_plain(x, head=head))
@@ -306,6 +344,10 @@ def kernel_cases(rng, dev):
              ("winners (B, 16384), orders 0..8", winners_t, full, orders(8)),
              ("probe (12B*11, 256), head = row", probes_t, probe, with_head(256)),
              ("probe winners (12B, 256), orders 0..3", pw_t, probe, orders(3)),
+             ("group (128*11, 16384), head 256 + row", stack_t[:g_rows], gfull, with_head(256)),
+             ("group winners (128, 16384), orders 0..8", winners_t[:GROUP_LANES], gfull, orders(8)),
+             ("group probe (1024*11, 256), head = row", probes_t[:gp_rows], gprobe, with_head(256)),
+             ("group probe winners (1024, 256), orders 0..3", pw_t[:GROUP_PROBE_LANES], gprobe, orders(3)),
              # what blocks of other lengths launch, and what the planner no longer does
              ("(B*11, 16384), row only", stack_t, None),
              ("strided head view (B*11, 256 of 16384)", stack_t[:, :256], None),
@@ -328,16 +370,25 @@ def kernel_cases(rng, dev):
     extra = [(f"(37, {n})", adversarial_codes(37, n, rng), None) for n in (264, 2048, 2052)]
     extra.append(("odd (37, 1001)", odd, None))
     scans = [("(B*11, 16384)", stack, full), ("(B, 16384)", winners, full),
-             ("probe (12B*11, 256)", probes, probe), ("probe (12B, 256)", probe_winners, probe)] + extra
+             ("probe (12B*11, 256)", probes, probe), ("probe (12B, 256)", probe_winners, probe),
+             ("group (128*11, 16384)", stack[:g_rows], gfull), ("group (128, 16384)", winners[:GROUP_LANES], gfull),
+             ("group probe (1024*11, 256)", probes[:gp_rows], gprobe),
+             ("group probe (1024, 256)", probe_winners[:GROUP_PROBE_LANES], gprobe)] + extra
     extra_t = [(lbl, up(a), tm) for lbl, a, tm in extra]
+    flags_t = up(flags.astype(np.uint32).view(np.int32))
+    k_after_t = up(k_after_codes(ROWS, BLOCK, rng))
     return {
         "k_cost_sums": kcost,
-        "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe), ("(B*11, 16384)", stack_t, None)] + extra_t,
-        "cumsum_u32": [("probe flags (12B*11, 256)", up(flags.astype(np.uint32).view(np.int32)), probe),
+        "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe),
+                              ("group probe (1024*11, 256)", probes_t[:gp_rows], gprobe),
+                              ("(B*11, 16384)", stack_t, None)] + extra_t,
+        "cumsum_u32": [("probe flags (12B*11, 256)", flags_t, probe),
+                       ("group probe flags (1024*11, 256)", flags_t[:gp_rows], gprobe),
                        ("adversarial (B*11, 16384)", stack_t, None)] + extra_t,
         "prefix_max_i32": [(lbl, up(break_indices(a, rng, False)), tm) for lbl, a, tm in scans],
         "suffix_min_i32": [(lbl, up(break_indices(a, rng, True)), tm) for lbl, a, tm in scans],
-        "k_after_stateful_fused": [(f"({ROWS}, {BLOCK})", up(k_after_codes(ROWS, BLOCK, rng)), full)]
+        "k_after_stateful_fused": [(f"({ROWS}, {BLOCK})", k_after_t, full),
+                                   (f"group ({g_rows}, {BLOCK})", k_after_t[:g_rows], gfull)]
         + [(f"(37, {n}), {n // 2048} tiles", up(k_after_codes(37, n, rng)), None)
            for n in range(2048, BLOCK + 1, 2048)],
     }
@@ -420,7 +471,9 @@ def check_kernels(rng):
 
 def per_encode(shapes, plans):
     """Each kernel's launches and its time over its bound at the path
-    shapes, for plan batch counts ``plans`` {"full": F, "probe": P}."""
+    shapes, for plan batch counts ``plans`` by kind (``PLAN_KINDS``). A
+    group-route batch is timed at its cap: its launches are exact, its
+    time an upper estimate."""
     out = {}
     for name, recs in shapes.items():
         n = sum(plans[r["kind"]] * r["per_plan"] for r in recs)
@@ -495,17 +548,27 @@ def check_goldens(tmp):
 
 
 def count_plan_batches():
-    """Wrap the plane pipeline's planner: plan batches counted by row length."""
+    """Wrap the planner where the plane pipeline and the group route call it
+    (``plan_group_sharded`` calls the group route's): plan batches on the
+    card counted by kind (``PLAN_KINDS``); a row length that no timed shape
+    covers raises."""
     calls = {}
-    plan = device_pipeline.plan_group
     guard = threading.Lock()  # a mesh plans from one thread per entry
 
-    def counted(pcm, *args):
-        with guard:
-            calls[pcm.shape[1]] = calls.get(pcm.shape[1], 0) + 1
-        return plan(pcm, *args)
+    def wrap(module, caller):
+        plan = module.plan_group
 
-    device_pipeline.plan_group = counted
+        def counted(pcm, *args, **kwargs):
+            if pcm.is_cuda:
+                kind = PLAN_KINDS[(caller, pcm.shape[1])]
+                with guard:
+                    calls[kind] = calls.get(kind, 0) + 1
+            return plan(pcm, *args, **kwargs)
+
+        module.plan_group = counted
+
+    wrap(device_pipeline, "pipe")
+    wrap(encoder_mod, "group")
     return calls
 
 
@@ -524,8 +587,7 @@ class Counted:
 
     def __exit__(self, *exc):
         self.launches = dict(K.launches)
-        self.plans = {kind: self.batches.get(width, 0) - self.before.get(width, 0)
-                      for kind, width in (("full", BLOCK), ("probe", 256))}
+        self.plans = {kind: self.batches.get(kind, 0) - self.before.get(kind, 0) for kind in PLAN_KINDS.values()}
 
 
 def check_accounting(label, shapes, plans, counts):
@@ -535,8 +597,8 @@ def check_accounting(label, shapes, plans, counts):
     model = per_encode(shapes, plans)
     check(all(model[k][0] == counts[k] for k in model) and counts[RESTORE] == 0,
           f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
-    check(counts["k_after_stateful_fused"] == plans["full"] and
-          counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"],
+    check(counts["k_after_stateful_fused"] == plans["full"] + plans["group-full"] and
+          counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"] + plans["group-probe"],
           f"{label}: kernel 6 runs once per full-width plan, kernels 2 and 3 once per probe plan: {counts}, {plans}")
     return model
 
@@ -717,7 +779,8 @@ root.mkdir()
 _cuda_lib.BUILD_DIR = root / "kernels"  # nothing built yet: the threads build both
 native.BUILD_DIR = root / "runtime"
 from lac_tpu_torch.batch import encode_batch
-from lac_tpu_torch.encoder import FrameEncoder, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
+from lac_tpu_torch.encoder import (ChannelBlockEncoder, FrameEncoder, lpc_candidates_from_lags, plan_group,
+                                   plan_inputs_to_torch)
 from lac_tpu_torch.profile_encode import gliding_stereo
 items = [gliding_stereo(9 * 16384 + 100 * i, 44100, 16, 70 + i) for i in range(4)]
 got = encode_batch(items, 44100, 16, max_workers=4)
@@ -819,10 +882,13 @@ def check_batch_paths(tmp, shapes, batches):
               f"PCM-exact; {c.plans['full']} full-width and {c.plans['probe']} probe plans; {wall:.3f} s; "
               f"peak device memory {gib(peak)}")
 
-    rc, out, wall, rss = run_child(["-c", COLD_BATCH_CHILD, os.path.join(tmp, "cold-build")])
+    # its clips are under LAC_TPU_COLD_BLOCKS: with the cold route off they reach the card, so the threads
+    # build both libraries
+    rc, out, wall, rss = run_child(["-c", COLD_BATCH_CHILD, os.path.join(tmp, "cold-build")],
+                                   {"LAC_TPU_COLD_BLOCKS": "0"})
     check(rc == 0, f"a fresh process whose first call is a threaded encode_batch failed ({rc}):\n{out}")
-    print(f"cold encode_batch (fresh process, nothing built, 4 threads): bytes == host route; {out.strip()}; "
-          f"wall {wall:.1f} s, peak RSS {rss:.0f} MiB")
+    print(f"cold encode_batch (fresh process, nothing built, 4 threads, LAC_TPU_COLD_BLOCKS=0): bytes == host "
+          f"route; {out.strip()}; wall {wall:.1f} s, peak RSS {rss:.0f} MiB")
     return {"launches": pooled.launches, "clips": clips, "refs": refs, "frames": frames,
             "mono": (small["6 mono clips"][2][0][0], wants["6 mono clips"][0]),
             "hires": (small["5 clips at 96 kHz 24-bit"][2][0], wants["5 clips at 96 kHz 24-bit"][0]),
@@ -921,17 +987,20 @@ sys.exit(rc)
 
 
 def check_cold_cli(tmp):
-    """One-shot CLI encodes in fresh processes: an input that the host route
-    plans alone starts no CUDA context; one that reaches the plane pipeline does."""
+    """One-shot CLI encodes in fresh processes: an input of at most
+    ``LAC_TPU_COLD_BLOCKS`` (``encoder.COLD_BLOCKS``) blocks takes the host
+    route and starts no CUDA context, a golden-size WAV and one of 8 full
+    blocks alike; one block more, or the 8-block input with
+    ``LAC_TPU_COLD_BLOCKS=0``, start one."""
     left, right, sr, depth, _ = golden_cases()["correlated"]
     want = (REPO / "tests" / "golden" / "correlated.lac").read_bytes()
     wav, lac = os.path.join(tmp, "cold.wav"), os.path.join(tmp, "cold.lac")
     check(write_wav_port(wav, left, right, 2, sr, depth), "cold CLI: WAV write failed")
 
-    def encode(args, label, initialized=None):
+    def encode(args, label, initialized=None, env=None):
         if os.path.exists(lac):
             os.remove(lac)
-        rc, out, wall, rss = run_child(args)
+        rc, out, wall, rss = run_child(args, env)
         with open(lac, "rb") as f:
             check(rc == 0 and f.read() == want, f"cold CLI, {label} ({rc}): bytes differ\n{out}")
         if initialized is not None:
@@ -946,10 +1015,18 @@ def check_cold_cli(tmp):
     encode(probe + ["context-first", "encode", wav, lac], "the same encode after a CUDA context was started", True)
     encode(probe + ["as-is", "encode", wav, lac], "the same encode as the CLI runs it: the card never touched", False)
 
-    l8, r8 = gliding_stereo(8 * BLOCK + 100, 44100, 16, 11)
-    want = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(l8, r8)
-    check(write_wav_port(wav, l8, r8, 2, 44100, 16), "cold CLI: WAV write failed")
-    encode(probe + ["as-is", "encode", wav, lac], "an input of 8 full blocks (the plane pipeline runs)", True)
+    over = encoder_mod.COLD_BLOCKS + 1
+    for blocks in (8, over):
+        left, right = gliding_stereo(blocks * BLOCK + 100, 44100, 16, 11)
+        want = FrameEncoder(12, 2, 44100, 16, device="cuda").encode_frame(left, right)
+        check(write_wav_port(wav, left, right, 2, 44100, 16), "cold CLI: WAV write failed")
+        if blocks == 8:
+            encode(probe + ["as-is", "encode", wav, lac], "an input of 8 full blocks (the cold route: host)", False)
+            encode(probe + ["as-is", "encode", wav, lac], "the same input with LAC_TPU_COLD_BLOCKS=0 (the plane "
+                   "pipeline runs)", True, {"LAC_TPU_COLD_BLOCKS": "0"})
+        else:
+            encode(probe + ["as-is", "encode", wav, lac], f"an input of {over} full blocks (over LAC_TPU_COLD_BLOCKS: "
+                   "the plane pipeline runs)", True)
 
 
 # ------------------------------------------------------------ the service
@@ -1505,25 +1582,309 @@ def check_decode(files, batch, batches):
     return path.launches
 
 
+# ------------------------------------------------------------ the group route
+
+
+GROUP_BLOCKS = 7  # full blocks of phase 13's cuts: under device_pipeline.MIN_FULL_BLOCKS
+NO_NATIVE_GOLDENS = ("sine-auto", "sparse", "noise24", "silence")  # as tests/test_no_native.py
+
+
+def group_inputs(with_3min=False):
+    """Phase 4's inputs cut under 8 full blocks (the plane pipeline leaves them
+    to the group route), made from their seeds: [(label, stereo mode, rate,
+    depth, left, right)]; the whole 3-minute file first with ``with_3min``."""
+    label, sr, depth, frames, seed = FILES[0]
+    left, right = gliding_stereo(frames, sr, depth, seed)
+    hl, hr = gliding_stereo(5 * BLOCK + 9000, 96000, 24, FILES[1][4])
+    nl, nr = filtered_noise_stereo(GROUP_BLOCKS * BLOCK + 5555, 44100, 16, 3)
+    cl, cr = gliding_stereo(30 * 44100, 44100, 16, 0xC0DEC)
+    cut = GROUP_BLOCKS * BLOCK + 1234
+    out = [(label, 2, sr, depth, left, right)] if with_3min else []
+    out += [("3 min file, first 7 blocks + 1234, auto", 2, sr, depth, left[:cut], right[:cut]),
+            ("60 s 96 kHz 24-bit recipe, 5 blocks + 9000, auto", 2, 96000, 24, hl, hr),
+            ("mono, 7 blocks + 1234", 0, sr, depth, left[:cut], ()),
+            ("forced ms, 7 blocks + 1234", 1, sr, depth, left[:cut], right[:cut]),
+            ("forced lr, 7 blocks + 1234", 0, sr, depth, left[:cut], right[:cut]),
+            ("filtered noise, 7 blocks + 5555, auto", 2, 44100, 16, nl, nr),
+            ("30 s corpus, first 3 blocks + 777, auto", 2, 44100, 16, cl[:3 * BLOCK + 777], cr[:3 * BLOCK + 777])]
+    return out
+
+
+def out_of_domain_groups():
+    """16384-sample lane groups outside the 24-bit domain, after
+    tests/test_ladder.py: filtered noise at 1.9e9, glitched sines (a
+    full-scale glitch in a 2e9 sine) and a group that mixes them with
+    16-bit noise, so that in-range and ladder lanes are spliced."""
+    rng = np.random.RandomState(99)
+    x = rng.standard_normal(BLOCK)
+    for _ in range(3):
+        x = 0.7 * x + 0.3 * np.concatenate([[0.0], x[:-1]])
+    ood = np.clip(x * 1.9e9, -2**31, 2**31 - 1).astype(np.int64).astype(np.int32)
+
+    def glitched(seed):
+        r = np.random.RandomState(seed)
+        t = np.arange(BLOCK)
+        y = np.sin(2 * np.pi * r.uniform(0.002, 0.3) * t + r.uniform(0, 6)) * r.uniform(1.5e9, 2.1e9)
+        y += r.standard_normal(BLOCK) * r.uniform(1e3, 1e6)
+        pcm = np.clip(y, -2**31, 2**31 - 1).astype(np.int64).astype(np.int32)
+        pcm[r.randint(100, BLOCK - 20)] = np.int32(r.choice([-2**31, 2**31 - 1]))
+        return pcm
+
+    sines = np.stack([glitched(s) for s in (10, 17, 27, 36, 133, 141)])
+    noise = np.random.RandomState(3).randint(-20000, 20000, (3, BLOCK)).astype(np.int32)
+    return [("out of the 24-bit domain (1 lane)", ood[None]), ("glitched sines (6 lanes)", sines),
+            ("mixed (noise, glitched, noise, noise, out of domain)",
+             np.stack([noise[0], sines[2], noise[1], noise[2], ood]))]
+
+
+NO_NATIVE_CHILD = r"""
+import json, pathlib, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from lac_tpu_torch import encoder
+from lac_tpu_torch.decoder import FrameDecoder
+from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.runtime import native
+from tests.signals import cases as golden_cases
+
+assert not native.native_available(), "LAC_TPU_NO_NATIVE=1 must turn the native runtime off"
+want = pathlib.Path(sys.argv[1])
+ships = []  # bytes of every ship copy: one per device batch
+fetched = encoder._GroupJob._fetched
+
+def counted(job, key):
+    out = fetched(job, key)
+    if key == "ship":
+        ships.append(out.nbytes)
+    return out
+
+encoder._GroupJob._fetched = counted
+inputs = [(lbl, m, sr, d, l, r) for lbl, m, sr, d, l, r in cs.group_inputs(with_3min=True)]
+goldens = golden_cases()
+inputs += [("golden " + n, goldens[n][4] if len(goldens[n][1]) else 0, goldens[n][2], goldens[n][3],
+            goldens[n][0], goldens[n][1]) for n in cs.NO_NATIVE_GOLDENS]
+for i, (label, mode, sr, depth, left, right) in enumerate(inputs):
+    del ships[:]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = FrameEncoder(12, mode, sr, depth, device="cuda").encode(left, right)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    assert got == (want / f"{i}.lac").read_bytes(), f"{label}: bytes differ from the native route's"
+    t0 = time.perf_counter()
+    dl, dr, _ = FrameDecoder().decode(got)
+    dec_s = time.perf_counter() - t0
+    assert np.array_equal(dl, left) and np.array_equal(dr, np.asarray(right, np.int32)), f"{label}: decode differs"
+    print("NONATIVE " + json.dumps({"label": label, "encode_s": enc_s, "decode_s": dec_s, "ship_bytes": list(ships),
+                                    "peak": torch.cuda.max_memory_allocated()}), flush=True)
+assert "lac_tpu" not in sys.modules and "jax" not in sys.modules
+"""
+
+TIMING_CHILD = r"""
+import chip_smoke as cs
+from lac_tpu_torch.encoder import FrameEncoder
+from lac_tpu_torch.profile_encode import gliding_stereo
+left, right = gliding_stereo(30 * 44100, 44100, 16, 0xC0DEC)
+FrameEncoder(12, 2, 44100, 16, device="cuda").encode(left, right)  # the plane pipeline
+label, mode, sr, depth, left, right = cs.group_inputs()[0]
+FrameEncoder(12, mode, sr, depth, device="cuda").encode(left, right)  # 7 blocks: the host route
+"""
+PIPELINE_PHASES = ("plane_pipeline", "plane_upload", "flags_fetch", "host_ld", "plan_dispatch", "meta_fetch",
+                   "emit_prep", "native_emit", "stereo_estimate", "lane_build", "assembly")
+HOST_PHASES = ("stereo_estimate", "lane_build", "group_stage", "plan_numpy", "native_emit", "assembly")
+GROUP_PHASES = ("stereo_estimate", "lane_build", "group_stage", "h2d_upload", "autocorr_fetch", "host_ld",
+                "plan_dispatch", "meta_fetch", "ship_fetch", "host_emit", "assembly")  # the no-native child's
+
+
+def check_group_route(tmp, shapes, batches):
+    """Phase 13: the group route on the card. Returns its launches."""
+    t13 = time.perf_counter()
+    clips = make_clips()
+    inputs = group_inputs() + [(f"clip of {len(l)} frames ({len(l) // BLOCK} full blocks)", 2, CLIP_RATE, 16, l, r)
+                               for l, r in clips if len(l) // BLOCK < device_pipeline.MIN_FULL_BLOCKS]
+    launches = {k: 0 for k in K.launches}
+    group_plans = {"group-full": 0, "group-probe": 0}
+
+    def add(c):
+        for k in launches:
+            launches[k] += c.launches[k]
+        for k in group_plans:
+            group_plans[k] += c.plans[k]
+
+    # FrameEncoder.encode leaves these inputs' lanes to the host route while the native runtime is
+    # there: no plan and no launch on the card. The lanes themselves go through the group route on the
+    # card, ChannelBlockEncoder(device="cuda").encode_lanes, against the host route's encode_lanes.
+    real_lanes = ChannelBlockEncoder.encode_lanes
+    seen = []
+
+    def recording(enc, data_list):
+        out = real_lanes(enc, data_list)
+        seen.append((list(data_list), out))
+        return out
+
+    print("inputs under 8 full blocks, warm, in turns host, card, card, host: FrameEncoder.encode against "
+          "encode_frame; their lanes through the group route on the card (ChannelBlockEncoder(device='cuda')."
+          "encode_lanes) against the host route (ChannelBlockEncoder().encode_lanes):")
+    for label, mode, sr, depth, left, right in inputs:
+        walls = {"frame host": [], "frame card": [], "lanes host": [], "lanes card": []}
+        del seen[:]
+        ChannelBlockEncoder.encode_lanes = recording
+        try:
+            ref = FrameEncoder(12, mode, sr, depth, device="cuda").encode_frame(left, right)
+        finally:
+            ChannelBlockEncoder.encode_lanes = real_lanes
+        check(len(seen) == 1, f"{label}: want one encode_lanes call on the host route, got {len(seen)}")
+        lanes, want = seen[0]
+        for route in ("host", "card", "card", "host"):
+            enc = FrameEncoder(12, mode, sr, depth, device="cuda")
+            fn = enc.encode_frame if route == "host" else enc.encode
+            with Counted(batches) as c:
+                got, wall, _ = timed_on_card(lambda: fn(left, right))
+            walls[f"frame {route}"].append(wall)
+            check(got == ref, f"{label}: FrameEncoder.encode bytes differ from the host route's ({route})")
+            check(sum(c.plans.values()) == 0 and not any(c.launches.values()),
+                  f"{label}: FrameEncoder.{fn.__name__} used the card: {c.plans}, {c.launches}")
+            cbe = ChannelBlockEncoder(device="cuda") if route == "card" else ChannelBlockEncoder()
+            with Counted(batches) as c:
+                got, wall, peak = timed_on_card(lambda: cbe.encode_lanes(lanes))
+            walls[f"lanes {route}"].append(wall)
+            check(got == want, f"group route, {label}: lane bytes differ from the host route's ({route})")
+            if route == "card" and len(walls["lanes card"]) == 1:
+                check(c.plans["full"] == c.plans["probe"] == 0, f"{label}: the plane pipeline ran: {c.plans}")
+                check(c.plans["group-full"] + c.plans["group-probe"] > 0, f"{label}: no group plan on the card")
+                check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+                add(c)
+                first = (c.plans, peak)
+        lens = sorted({len(x) for x in lanes})
+        print(f"  {label}: {len(left)} frames, {len(lanes)} lanes of {lens} samples; bytes == host route; "
+              f"group plans {first[0]['group-full']} full-width, {first[0]['group-probe']} probe, peak device "
+              f"memory {gib(first[1])}; FrameEncoder.encode {' / '.join(f'{w:.3f}' for w in walls['frame card'])} "
+              f"s, encode_frame {' / '.join(f'{w:.3f}' for w in walls['frame host'])} s; lanes on the card "
+              f"{' / '.join(f'{w:.3f}' for w in walls['lanes card'])} s, on the host "
+              f"{' / '.join(f'{w:.3f}' for w in walls['lanes host'])} s")
+
+    # full batches at the device caps, 128 lanes of 16384 and 1024 probe lanes of 256 (the 3-minute
+    # recipe's first blocks): where the card's group plans would have to win
+    left, right = gliding_stereo(64 * BLOCK, FILES[0][1], FILES[0][2], FILES[0][4])
+    caps = [("128 lanes of 16384", np.concatenate([left, right]).reshape(128, BLOCK)),
+            ("1024 lanes of 256", left[: 1024 * 256].reshape(1024, 256))]
+    for label, group in caps:
+        walls = {"host": [], "card": []}
+        for route in ("host", "card", "card", "host"):
+            cbe = ChannelBlockEncoder(device="cuda") if route == "card" else ChannelBlockEncoder()
+            with Counted(batches) as c:
+                got, wall, peak = timed_on_card(lambda: cbe.encode_group(group))
+            walls[route].append(wall)
+            if route == "host" and not walls["card"]:
+                want = got
+                continue
+            check(got == want, f"group route, {label}: bytes differ from the host route's ({route})")
+            if len(walls["card"]) == 1 and route == "card":
+                check(sum(c.plans[k] for k in group_plans) == 1, f"group route, {label}: want one batch: {c.plans}")
+                check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+                add(c)
+                cap_peak = peak
+        print(f"  one batch at the cap, {label}: bytes == host route; card "
+              f"{' / '.join(f'{w:.3f}' for w in walls['card'])} s, host {' / '.join(f'{w:.3f}' for w in walls['host'])}"
+              f" s; peak device memory {gib(cap_peak)}")
+    check(all(launches[k] > 0 for k in ENCODE_KERNELS), f"group route: a kernel never launched: {launches}")
+    print(f"group route: {group_plans['group-full']} full-width and {group_plans['group-probe']} probe plan "
+          f"batches; launches {launches}")
+
+    goldens = golden_cases()
+    for name, (left, right, sr, depth, smode) in sorted(goldens.items()):
+        got = FrameEncoder(12, smode if len(right) else 0, sr, depth, device="cuda").encode(left, right)
+        check(got == (REPO / "tests" / "golden" / f"{name}.lac").read_bytes(),
+              f"group route, golden {name}: bytes differ from tests/golden/{name}.lac")
+    print(f"group route: the {len(goldens)} goldens through FrameEncoder.encode on the card == tests/golden/*.lac")
+
+    # lanes outside the 24-bit domain: int32 upload, exact lags, the order ladder
+    replanned = []
+    real_replan = encoder_mod._GroupJob._ladder_replan
+
+    def counted_replan(job, pcm_rows, *args):
+        if job.on_device:
+            replanned.append(pcm_rows.shape[0])
+        return real_replan(job, pcm_rows, *args)
+
+    encoder_mod._GroupJob._ladder_replan = counted_replan
+    try:
+        for label, group in out_of_domain_groups():
+            want = ChannelBlockEncoder().encode_group(group)
+            del replanned[:]
+            with Counted(batches) as c:
+                got = ChannelBlockEncoder(device="cuda").encode_group(group)
+            check(got == want, f"group route, {label}: bytes differ from the host route's")
+            check(sum(replanned) > 0, f"group route, {label}: no lane of the card's batch walked the ladder")
+            check(c.plans["group-full"] == 1, f"group route, {label}: want one plan batch on the card, got {c.plans}")
+            check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+            for k in launches:
+                launches[k] += c.launches[k]
+            print(f"  ChannelBlockEncoder(device='cuda'), {label}: bytes == host route ({sum(map(len, got))} bytes); "
+                  f"{sum(replanned)} of {len(group)} lanes replanned down the order ladder")
+    finally:
+        encoder_mod._GroupJob._ladder_replan = real_replan
+
+    # a fresh process with LAC_TPU_NO_NATIVE=1: the token route, bytes those of the native route above
+    want_dir = pathlib.Path(tmp) / "no-native"
+    want_dir.mkdir()
+    nn_inputs = group_inputs(with_3min=True)
+    nn_inputs += [(n, goldens[n][4] if len(goldens[n][1]) else 0, goldens[n][2], goldens[n][3], goldens[n][0],
+                   goldens[n][1]) for n in NO_NATIVE_GOLDENS]
+    for i, (label, mode, sr, depth, left, right) in enumerate(nn_inputs):
+        (want_dir / f"{i}.lac").write_bytes(FrameEncoder(12, mode, sr, depth, device="cuda").encode(left, right))
+    rc, out, wall, rss = run_child(["-c", NO_NATIVE_CHILD, str(want_dir)],
+                                   {"LAC_TPU_NO_NATIVE": "1", "LAC_TPU_TIMING": "1"}, limit_s=400)
+    rows = [json.loads(line[9:]) for line in out.splitlines() if line.startswith("NONATIVE ")]
+    check(rc == 0 and len(rows) == len(nn_inputs), f"LAC_TPU_NO_NATIVE=1 child failed ({rc}):\n{out[-4000:]}")
+    timing = [line for line in out.splitlines() if line.startswith("[lac-timing] ")]
+    have = {p.split("=")[0] for line in timing for p in line.split(": ", 1)[1].split(" (sum")[0].split()}
+    check(len(timing) == len(nn_inputs) and set(GROUP_PHASES) <= have,
+          f"LAC_TPU_NO_NATIVE=1 with LAC_TPU_TIMING=1: want one [lac-timing] line per encode with "
+          f"{sorted(set(GROUP_PHASES) - have)} too:\n{out[-4000:]}")
+    print(f"LAC_TPU_NO_NATIVE=1 and LAC_TPU_TIMING=1, fresh process on the card: {len(rows)} inputs == the "
+          f"native route's bytes, Python-reader decodes PCM-exact; wall {wall:.1f} s, peak RSS {rss:.0f} MiB; "
+          f"the group route's timing line of the 3-minute file: {timing[0] if timing else None}")
+    for r in rows:
+        ships = r["ship_bytes"]
+        ship_txt = f"{len(ships)} ship copies of {min(ships)}-{max(ships)} bytes" if ships else "no ship copy"
+        print(f"  {r['label']}: encode {r['encode_s']:.3f} s, decode {r['decode_s']:.3f} s; {ship_txt}; "
+              f"peak device memory {gib(r['peak'])}")
+
+    # LAC_TPU_TIMING=1: one [lac-timing] line per encode, with the phases of each route
+    # LAC_TPU_COLD_BLOCKS=0: the fresh process's first encode (81 blocks) must reach the card
+    rc, out, wall, _ = run_child(["-c", TIMING_CHILD], {"LAC_TPU_TIMING": "1", "LAC_TPU_COLD_BLOCKS": "0"})
+    lines = [line for line in out.splitlines() if line.startswith("[lac-timing] ")]
+    check(rc == 0 and len(lines) == 2, f"LAC_TPU_TIMING=1: want two [lac-timing] lines ({rc}):\n{out[-4000:]}")
+    for line, names in zip(lines, (PIPELINE_PHASES, HOST_PHASES)):
+        have = {p.split("=")[0] for p in line.split(": ", 1)[1].split(" (sum")[0].split()}
+        check(set(names) <= have, f"LAC_TPU_TIMING=1: {sorted(set(names) - have)} missing from {line}")
+        print(f"  {line}")
+    print(f"phase 13 (the group route): {time.perf_counter() - t13:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------ the mesh
 
 
 MESH_CLI_CHILD = """
-import json, sys, time
+import json, os, sys, time
 t0 = time.perf_counter()
 import torch
 from lac_tpu_torch import cli
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.parallel import default_mesh
 t1 = time.perf_counter()
+mesh = default_mesh() if os.environ.get("LAC_TPU_CLI_MESH") == "1" else None  # what the CLI may take
 if sys.argv[1] == "contexts-first":  # start the cards' CUDA contexts before the encode
-    for i in range(min(2, torch.cuda.device_count()) if default_mesh() else 1):
+    for i in range(min(2, torch.cuda.device_count()) if mesh else 1):
         torch.zeros(1, device=f"cuda:{i}")
         torch.cuda.synchronize(i)
 t2 = time.perf_counter()
 rc = cli.main(sys.argv[2:])
 t3 = time.perf_counter()
-print("MESH " + json.dumps({"mesh": [str(d) for d in default_mesh() or ()],
+print("MESH " + json.dumps({"mesh": [str(d) for d in mesh or ()],
                             "card_launches": {str(k): sum(v.values()) for k, v in sorted(K.card_launches.items())},
                             "import_s": t1 - t0, "contexts_s": t2 - t1, "cli_s": t3 - t2}))
 sys.exit(rc)
@@ -1671,8 +2032,10 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
             got = plan_group_sharded(stand_in, pcm, coeffs, lvalid, n)
         check(np.array_equal(got["meta"], whole) and got["total_token_bits"] == rows,
               f"plan_group_sharded ({rows}, {n}) on the stand-in mesh differs from plan_group")
-        plans = {"full": D if n == BLOCK else 0, "probe": D if n == 256 else 0}  # one plan per shard
-        check_accounting(f"plan_group_sharded ({rows}, {n})", shapes, plans, c.launches)
+        kind = "group-full" if n == BLOCK else "group-probe"
+        check(c.plans == {k: D if k == kind else 0 for k in PLAN_KINDS.values()},
+              f"plan_group_sharded ({rows}, {n}): want one plan per shard, got {c.plans}")
+        check_accounting(f"plan_group_sharded ({rows}, {n})", shapes, c.plans, c.launches)
         print(f"  plan_group_sharded ({rows}, {n}) on a stand-in mesh of {D}: meta == plan_group's, "
               f"{got['total_token_bits']} lanes counted, launches {c.launches}")
 
@@ -1684,9 +2047,10 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
         torch.cuda.synchronize()
     check(got == cd_ref, "3-minute file on the stand-in mesh: bytes differ from one card's")
     check_accounting("3-minute file on the stand-in mesh", shapes, c_cd.plans, c_cd.launches)
-    check(c_cd.launches == one.launches and c_cd.plans == one.plans,
-          f"3-minute file: the stand-in mesh launched {c_cd.launches} in {c_cd.plans}, one card {one.launches} in "
-          f"{one.plans}")
+    check_accounting("3-minute file on one card", shapes, one.plans, one.launches)
+    # the plane pipeline's plans are one card's; the group route splits each of its batches over the shards
+    check(all(c_cd.plans[k] == (D if k.startswith("group") else 1) * one.plans[k] for k in PLAN_KINDS.values()),
+          f"3-minute file: the stand-in mesh planned {c_cd.plans}, one card {one.plans}")
     with Counted(batches) as c_clips:
         got, wall, peak = timed_on_card(lambda: pool.encode_pooled(clips, CLIP_RATE, 16, mesh=stand_in))
     bad = [i for i, (g, w) in enumerate(zip(got, refs)) if g != w]
@@ -1697,7 +2061,7 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
         check(default_mesh() is None, "default_mesh() with one visible card must be None")
     mesh_launches = {k: c_cd.launches[k] + c_clips.launches[k] for k in K.launches}
     print(f"mesh, stand-in ({D} entries on cuda:0): 3-minute file == one card's bytes, launches {c_cd.launches} "
-          f"(one card's); {len(clips)} clips pooled == host route and decode PCM-exact, {wall:.3f} s, "
+          f"(one card: {one.launches}); {len(clips)} clips pooled == host route and decode PCM-exact, {wall:.3f} s, "
           f"{c_clips.plans['full']} full-width and {c_clips.plans['probe']} probe plans, peak device memory "
           f"{gib(peak)}; default_mesh() = {default_mesh()}; phase 12 (stand-in) {time.perf_counter() - t12:.1f} s")
     if torch.cuda.device_count() >= 2:
@@ -1751,8 +2115,10 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
             if m is None:
                 check(set(cl) == {0}, f"{label}, one card: launches on cards {cl}")
                 continue
-            check(len([i for i in cards if cl.get(i, 0) > 0]) == min(len(mesh), used),
-                  f"{label}, mesh: want launches on {min(len(mesh), used)} cards, got {cl}")
+            # the plane pipeline's chunks reach ``used`` cards; the group route spreads a
+            # tail's plan batch over every card of the mesh
+            check(len([i for i in cards if cl.get(i, 0) > 0]) >= min(len(mesh), used),
+                  f"{label}, mesh: want launches on at least {min(len(mesh), used)} cards, got {cl}")
             pairs, both, anyone = overlap_report(tl.chunks())
             if used > 1:
                 check(pairs > 0, f"{label}, mesh: no two chunks on different cards overlap in time")
@@ -1807,13 +2173,12 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
     lac = os.path.join(tmp, "mesh-long.lac")
     walls = []
     for on in (False, True, True, False):
-        if not on:
-            os.environ["LAC_TPU_MESH"] = "0"
+        os.environ["LAC_TPU_CLI_MESH"] = "1" if on else "0"  # the CLI's one-shot encode takes the mesh only when asked
         try:
             with Counted(batches) as c:
                 rc, wall, _ = on_all(lambda: cli.main(["encode", wav, lac]))
         finally:
-            os.environ.pop("LAC_TPU_MESH", None)
+            os.environ.pop("LAC_TPU_CLI_MESH", None)
         check(rc == 0 and take(lac) == long_ref, "mesh, long WAV through the CLI in this process: bytes differ")
         check_accounting("mesh, long WAV through the CLI", shapes, c.plans, c.launches)
         walls.append(f"{'mesh' if on else 'one card'} {wall:.3f} s")
@@ -1821,7 +2186,7 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
     walls = []
     for on, first in ((False, False), (True, False), (True, False), (False, False),
                       (False, True), (True, True), (True, True), (False, True)):
-        env = None if on else {"LAC_TPU_MESH": "0"}
+        env = {"LAC_TPU_CLI_MESH": "1" if on else "0"}
         rc, out, wall, rss = run_child(["-c", MESH_CLI_CHILD, "contexts-first" if first else "as-is", "encode", wav,
                                         lac], env)
         check(rc == 0 and take(lac) == long_ref, f"mesh, long WAV through the CLI ({rc}): bytes differ\n{out}")
@@ -1875,6 +2240,10 @@ def main():
     records, shapes = check_kernels(rng)
     check_argmin_ties(rng)
     restore_rng = np.random.RandomState(20261017)  # phase 11's kernel inputs, apart from the others' stream
+    # phase 3 ran every kernel on the card: from here on this process is warm, so the cold route
+    # (in-memory inputs of at most encoder.COLD_BLOCKS blocks on the host) never takes phase 4's files
+    # or phase 6's clips off the card; phase 8 drives it in fresh processes
+    device_pipeline.mark_warm()
 
     if mesh_only:  # phase 12 alone, on every visible card
         batches = count_plan_batches()
@@ -1912,12 +2281,13 @@ def main():
         torch.cuda.synchronize()
         per_file.append((time.perf_counter() - t0, {k: K.launches[k] - before[k] for k in before},
                          torch.cuda.max_memory_allocated()))
-        plans_per_file.append({kind: batches.get(width, 0) - plans_before.get(width, 0)
-                               for kind, width in (("full", BLOCK), ("probe", 256))})
+        plans_per_file.append({kind: batches.get(kind, 0) - plans_before.get(kind, 0) for kind in PLAN_KINDS.values()})
         check(got == ref, f"{label}: port bytes differ from the port's host route")
     launches = dict(K.launches)
-    full, probe = batches.get(BLOCK, 0), batches.get(256, 0)
-    print(f"main path: {full} full-width and {probe} probe plan batches; launches {launches}")
+    # the group route plans the lanes of the tail blocks (an uncertain tail's probe lanes)
+    full = batches.get("full", 0) + batches.get("group-full", 0)
+    probe = batches.get("probe", 0) + batches.get("group-probe", 0)
+    print(f"main path: {full} full-width and {probe} probe plan batches ({batches}); launches {launches}")
     check(all(launches[k] > 0 for k in ENCODE_KERNELS), f"a kernel of the path never launched: {launches}")
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
@@ -1925,7 +2295,8 @@ def main():
     # the timed shapes are every shape the path launches: they account for every launch
     for (label, *_), (_, counts, _), plans in zip(FILES, per_file, plans_per_file):
         model = check_accounting(label, shapes, plans, counts)
-        print(f"{label}: {plans['full']} full-width and {plans['probe']} probe plans; per kernel, launches, "
+        print(f"{label}: {plans['full']} full-width and {plans['probe']} probe plans, and the group route's "
+              f"{plans['group-full']} and {plans['group-probe']}; per kernel, launches, "
               f"time at the timed shapes and launches x (time - bound), largest first:")
         for name, (n, ms, excess) in sorted(model.items(), key=lambda kv: -kv[1][2]):
             print(f"  {name:22s} {n:4d} launches, {ms:.4f} ms, {excess:.4f} ms over the bound")
@@ -1978,6 +2349,9 @@ def main():
 
         # 12. the mesh: a stand-in of two entries on card 0, and every card when there are two or more
         by_path["mesh"] = check_mesh(tmp, shapes, batches, (*audio[0][3], refs[0]), batch, (long_wav, long_lac))
+
+        # 13. the group route: inputs under 8 full blocks, lanes outside the 24-bit domain, no native runtime
+        by_path["group"] = check_group_route(tmp, shapes, batches)
 
     finish(t_start, records, by_path, "files", KERNELS)
 

@@ -19,9 +19,10 @@ Entry points (``encoder.FrameEncoder``, ``cli.main``,
 ``stream.encode_wav_to_lac``, ``batch.encode_batch``,
 ``pool.encode_pooled``) run on the CUDA card unless the caller passes
 ``device="cpu"``; array helpers run on the device of the tensors they
-are given. With two or more cards visible, the CLI, pooled waves and
-the service spread their chunks over every card
-(:func:`.parallel.default_mesh`; ``LAC_TPU_MESH=0`` turns it off).
+are given. With two or more cards visible, pooled waves and the service
+spread their chunks over every card (:func:`.parallel.default_mesh`;
+``LAC_TPU_MESH=0`` turns it off); the CLI's one-shot encode runs on one
+card unless ``LAC_TPU_CLI_MESH=1`` asks for the mesh.
 """
 
 import contextlib

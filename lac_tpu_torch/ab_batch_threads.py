@@ -33,6 +33,7 @@ def main(argv=None):
         raise SystemExit("ab_batch_threads: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    device_pipeline.mark_warm()  # the card's path, not the cold route's host route
     rng = np.random.RandomState(60)
     clips = [(filtered_noise_stereo if i % 3 == 2 else gliding_stereo)(int(s * 44100), 44100, 16, 1000 + i)
              for i, s in enumerate(rng.uniform(5, 35, args.clips))]

@@ -8,7 +8,8 @@ the parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists). The turns are other, this, this, other; each
 process imports its own checkout's package (and builds its kernels
 there once), makes the inputs from a seed, encodes each once cold and
-then ``N`` times warm, on one card (``LAC_TPU_MESH=0``):
+then ``N`` times warm, on one card (``LAC_TPU_MESH=0``; with
+``LAC_TPU_COLD_BLOCKS=0`` no input takes the cold route's host route):
 
 * the 3-minute 44.1 kHz 16-bit stereo file, ``FrameEncoder.encode``;
 * the clip batch (84 stereo clips, the one ``chip_smoke.py`` makes),
@@ -122,6 +123,7 @@ def main(argv=None):
                          capture_output=True, text=True, check=True).stdout.strip())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["LAC_TPU_MESH"] = "0"
+    env["LAC_TPU_COLD_BLOCKS"] = "0"  # the card's paths, not the cold route's host route
     first = None
     for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
         proc = subprocess.run([sys.executable, "-c", CHILD, str(args.runs)], cwd=root, env=env,

@@ -19,12 +19,17 @@ host-native (the native runtime) and needs no card.
 streams through :func:`.stream.encode_wav_to_lac` into the staged
 output, ``LAC_TPU_STREAM_CHUNK_BLOCKS`` blocks at a time (default 512),
 in bounded memory; the debug flags keep the in-memory path. The card is
-checked for at once and its CUDA context starts only when the plane
-pipeline runs: an input under ``device_pipeline.MIN_FULL_BLOCKS`` full
-blocks is planned on the host and starts none. An input that reaches
-the plane pipeline, streamed or not, spreads its chunks over every
-visible card when there are two or more (:func:`.parallel.default_mesh`;
-``LAC_TPU_MESH=0`` keeps one card); counting the cards starts no context.
+checked for at once and its CUDA context starts only when the input
+reaches it: in a process that has not used the card, an input of at
+most ``LAC_TPU_COLD_BLOCKS`` blocks (default 1024) is planned on the host
+and starts none (``encoder._cold_route``). A one-shot encode runs on
+one card: on four H100s the 13-minute WAV took longer through the CLI
+on the two cards its chunks reach than on one (each card pays its first
+use). ``LAC_TPU_CLI_MESH=1`` asks for the mesh: the cards of
+:func:`.parallel.default_mesh`, no more than the input has plane-pipeline
+chunks in flight (:func:`_one_shot_mesh`); counting the cards starts no
+context. The pool and the service take the default mesh
+(``LAC_TPU_MESH=0`` keeps them, and the CLI's opt-in, on one card).
 """
 
 import math
@@ -149,8 +154,35 @@ def _report_threads(debug_threads: bool, label="Thread usage", warning="Multi-th
         sys.stdout.write(f"WARNING: {warning}\n")
 
 
-def _cmd_encode(argv, device) -> int:
+def _one_shot_mesh(frames, streaming):
+    """The cards a one-shot encode of ``frames`` frames takes: one (None)
+    unless ``LAC_TPU_CLI_MESH=1`` asks for the mesh; then those of
+    :func:`.parallel.default_mesh`, but no more than the plane-pipeline
+    chunks it has in flight at once (``ceil(nfull / chunk_width(nfull))``
+    in memory, one stream chunk's on the streaming route), since every
+    card costs its first use; None again for one card, for an input the
+    plane pipeline does not take, or one the cold route keeps on the host."""
     from . import device_pipeline
+    from .encoder import _cold_route
+    from .parallel import default_mesh
+
+    if os.environ.get("LAC_TPU_CLI_MESH") != "1":
+        return None
+    nfull = frames // C.MAX_BLOCK_SIZE
+    if streaming:
+        from .stream import _default_chunk_blocks
+
+        nfull = min(nfull, max(1, _default_chunk_blocks()))
+    if _cold_route(-(-frames // C.MAX_BLOCK_SIZE)) or not device_pipeline.applicable(nfull):
+        return None
+    mesh = default_mesh()
+    if mesh is None:
+        return None
+    cards = min(len(mesh), -(-nfull // device_pipeline.chunk_width(nfull)))
+    return mesh[:cards] if cards > 1 else None
+
+
+def _cmd_encode(argv, device) -> int:
     from .encoder import FrameEncoder
     from .io import read_wav
 
@@ -194,14 +226,8 @@ def _cmd_encode(argv, device) -> int:
             return 1
         left, right, channels, sample_rate, bit_depth = wav
     effective_mode = 0 if channels == 1 else opts["stereo_mode"]
-    mesh = None
     frames = stream_info.frames if stream_info is not None else len(left)
-    if device.type == "cuda" and device_pipeline.applicable(frames // C.MAX_BLOCK_SIZE):
-        # the product default: every visible card (the reference's worker
-        # pool uses every core without a flag); bytes are one card's
-        from .parallel import default_mesh
-
-        mesh = default_mesh()
+    mesh = _one_shot_mesh(frames, stream_info is not None) if device.type == "cuda" else None
 
     def make_encoder():
         enc = FrameEncoder(12, effective_mode, sample_rate, bit_depth, device=device, mesh=mesh)

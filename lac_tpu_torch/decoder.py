@@ -323,7 +323,9 @@ class FrameDecoder:
         self.thread_count = 0
         self.use_native = use_native and backend != "python"
         self.backend = backend
-        self.native = self.use_native and backend == "native"  # the native runtime decodes whole blocks
+        # the native runtime decodes whole blocks; under LAC_TPU_NO_NATIVE=1
+        # the Python reader does (lac_tpu/decoder.py:659-667)
+        self.native = self.use_native and backend == "native" and native.native_available()
         self.device = check_device(device) if backend == "device" else None
 
     def set_thread_count(self, n):

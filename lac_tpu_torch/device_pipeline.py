@@ -45,6 +45,7 @@ from .format import constants as C
 from .ops.lpc import autocorrelation
 from .ops.stereo import estimate_stereo_mode, ms_transform
 from .runtime import native
+from .utils import debug as _dbg
 
 N = C.MAX_BLOCK_SIZE
 PROBE = C.STEREO_PROBE_SIZE
@@ -55,6 +56,21 @@ CHUNK_BLOCKS = 0
 CHUNK_LADDER = (64, 128, 256)
 MIN_FULL_BLOCKS = 8
 PIPE_DEPTH = 2  # analyze -> plan gap, in chunks
+
+# process warmth: the first encode that reaches a card starts its CUDA
+# context and loads the kernels' modules (seconds). Until then,
+# ``encoder._cold_route`` sends short inputs to the host route, so a
+# one-shot CLI encode of a short file starts no context.
+_PROC_WARM = False
+
+
+def mark_warm():
+    global _PROC_WARM
+    _PROC_WARM = True
+
+
+def process_warm():
+    return _PROC_WARM
 
 
 class _TurnLock:
@@ -132,8 +148,10 @@ def plan_batches(total, K):
 
 
 def applicable(nfull):
-    """True when the plane pipeline plans the full-block prefix."""
-    return nfull >= MIN_FULL_BLOCKS
+    """True when the plane pipeline plans the full-block prefix: from
+    MIN_FULL_BLOCKS full blocks on, and only with the native runtime,
+    whose plane replay writes its bytes (lac_tpu/device_pipeline.py:101-105)."""
+    return nfull >= MIN_FULL_BLOCKS and native.native_available()
 
 
 def analyze(lmat, rmat, kind):
@@ -185,9 +203,10 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 1
     def dispatch_analyze(self):
         pipe = self.pipe
-        lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
-        rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
-        self.dev = analyze(lmat, rmat, pipe.kind)
+        with _dbg.phase("plane_upload", self.device):
+            lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
+            rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
+            self.dev = analyze(lmat, rmat, pipe.kind)
         self.copies = {k: HostCopy(self.dev[k]) for k in ("cm", "un", "lags", "plags") if k in self.dev}
 
     def await_analyze(self):
@@ -198,12 +217,13 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 2
     def dispatch_plan(self):
         pipe, K, kc = self.pipe, self.pipe.K, self.kc
-        lags = self.copies["lags"].numpy()
-        if pipe.kind == "auto":
-            cm = self.copies["cm"].numpy()
-            un = self.copies["un"].numpy()
-        else:
-            cm = un = None
+        with _dbg.phase("flags_fetch"):
+            lags = self.copies["lags"].numpy()
+            if pipe.kind == "auto":
+                cm = self.copies["cm"].numpy()
+                un = self.copies["un"].numpy()
+            else:
+                cm = un = None
         self.cm, self.un = cm, un
 
         # full-lane rows: (planes row, local block, variant, slot); plane
@@ -231,7 +251,8 @@ class _ChunkJob:
                 recs += [(i, "lr", 0), (i, "lr", 1)]
         self.rows, self.recs = np.asarray(rows, np.int64), recs
 
-        coeffs, used, lvalid, mvo = lpc_candidates_from_lags(lags[self.rows], N)
+        with _dbg.phase("host_ld"):
+            coeffs, used, lvalid, mvo = lpc_candidates_from_lags(lags[self.rows], N)
         self.coeffs, self.used, self.mvo = coeffs, used, mvo
         self.copies_meta = self._plan(self.dev["planes"], self.rows, coeffs, lvalid, N,
                                       plan_batches(len(rows), K))
@@ -245,14 +266,15 @@ class _ChunkJob:
         """Gather ``rows`` of ``src`` and plan them batch by batch; returns
         the started host copies of the meta rows."""
         pipe = self.pipe
-        rows_t = upload(rows, self.device)
-        ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
         copies = []
-        for lo, nsub, _ in batches:
-            g = src.index_select(0, rows_t[lo : lo + nsub])
-            meta = plan_group(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
-                              pipe.zero_run, pipe.partitioning)
-            copies.append(HostCopy(meta))
+        with _dbg.phase("plan_dispatch", self.device):
+            rows_t = upload(rows, self.device)
+            ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
+            for lo, nsub, _ in batches:
+                g = src.index_select(0, rows_t[lo : lo + nsub])
+                meta = plan_group(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
+                                  pipe.zero_run, pipe.partitioning)
+                copies.append(HostCopy(meta))
         return copies
 
     def _dispatch_probe_plan(self):
@@ -266,7 +288,8 @@ class _ChunkJob:
                         rows.append(self._probe_row_of(pl, int(i), pos))
                         recs.append((int(i), variant))
         self.probe_rows, self.probe_recs = np.asarray(rows, np.int64), recs
-        coeffs, used, lvalid, mvo = lpc_candidates_from_lags(plags[self.probe_rows], PROBE)
+        with _dbg.phase("host_ld"):
+            coeffs, used, lvalid, mvo = lpc_candidates_from_lags(plags[self.probe_rows], PROBE)
         self.probe_coeffs, self.probe_used, self.probe_mvo = coeffs, used, mvo
         cap = 12 * K  # 12 probe lanes per block
         batches = [(lo, min(cap, len(rows) - lo), cap) for lo in range(0, len(rows), cap)]
@@ -275,7 +298,8 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 3
     def finish(self):
         pipe, kc = self.pipe, self.kc
-        metas = [c.numpy() for c in self.copies_meta]
+        with _dbg.phase("meta_fetch"):
+            metas = [c.numpy() for c in self.copies_meta]
         meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
 
         # resolve uncertain stereo decisions before full-lane emission:
@@ -298,14 +322,16 @@ class _ChunkJob:
 
         sel = np.asarray([j for j, (i, v, _) in enumerate(self.recs) if _wins(i, v)], np.intp)
         recs = [self.recs[j] for j in sel]
-        rows = np.asarray([self.c0 + i for i, _, _ in recs], np.int32)
-        variants = np.asarray([v == "ms" for _, v, _ in recs], np.uint8)
-        slots = np.asarray([s for _, _, s in recs], np.uint8)
-        starts = np.zeros(len(recs), np.uint32)
-        plan = expand_plan(meta[sel], self.coeffs[:, sel], self.used[:, sel], self.mvo, N, pipe.partitioning)
-        payloads = native.emit_blocks_planes(
-            pipe.lview, pipe.rview, rows, variants, slots, starts, N, *plan, num_threads=pipe.thread_count,
-        )
+        with _dbg.phase("emit_prep"):
+            rows = np.asarray([self.c0 + i for i, _, _ in recs], np.int32)
+            variants = np.asarray([v == "ms" for _, v, _ in recs], np.uint8)
+            slots = np.asarray([s for _, _, s in recs], np.uint8)
+            starts = np.zeros(len(recs), np.uint32)
+            plan = expand_plan(meta[sel], self.coeffs[:, sel], self.used[:, sel], self.mvo, N, pipe.partitioning)
+        with _dbg.phase("native_emit"):
+            payloads = native.emit_blocks_planes(
+                pipe.lview, pipe.rview, rows, variants, slots, starts, N, *plan, num_threads=pipe.thread_count,
+            )
 
         result = {}
         for (i, _, slot), pb in zip(recs, payloads):
@@ -318,24 +344,27 @@ class _ChunkJob:
 
     def _finish_probes(self, flags):
         pipe = self.pipe
-        metas = [c.numpy() for c in self.probe_copies]
+        with _dbg.phase("meta_fetch"):
+            metas = [c.numpy() for c in self.probe_copies]
         meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
-        rows, variants, slots, starts = [], [], [], []
-        for i in sorted({i for i, _ in self.probe_recs}):
-            for variant in ("lr", "ms"):
-                for slot in (0, 1):
-                    for pos in PROBE_POS:
-                        rows.append(self.c0 + i)
-                        variants.append(variant == "ms")
-                        slots.append(slot)
-                        starts.append(pos)
-        plan = expand_plan(meta, self.probe_coeffs, self.probe_used, self.probe_mvo, PROBE, pipe.partitioning)
-        payloads = native.emit_blocks_planes(
-            pipe.lview, pipe.rview,
-            np.asarray(rows, np.int32), np.asarray(variants, np.uint8),
-            np.asarray(slots, np.uint8), np.asarray(starts, np.uint32), PROBE,
-            *plan, num_threads=pipe.thread_count,
-        )
+        with _dbg.phase("emit_prep"):
+            rows, variants, slots, starts = [], [], [], []
+            for i in sorted({i for i, _ in self.probe_recs}):
+                for variant in ("lr", "ms"):
+                    for slot in (0, 1):
+                        for pos in PROBE_POS:
+                            rows.append(self.c0 + i)
+                            variants.append(variant == "ms")
+                            slots.append(slot)
+                            starts.append(pos)
+            plan = expand_plan(meta, self.probe_coeffs, self.probe_used, self.probe_mvo, PROBE, pipe.partitioning)
+        with _dbg.phase("native_emit"):
+            payloads = native.emit_blocks_planes(
+                pipe.lview, pipe.rview,
+                np.asarray(rows, np.int32), np.asarray(variants, np.uint8),
+                np.asarray(slots, np.uint8), np.asarray(starts, np.uint32), PROBE,
+                *plan, num_threads=pipe.thread_count,
+            )
         totals = {}
         for (i, variant), pb in zip(self.probe_recs, payloads):
             t = totals.setdefault(i, {"lr": 0, "ms": 0})
@@ -403,6 +432,8 @@ class PlanePipeline:
                 progress_cb(jobs[i].c0 + jobs[i].kc, payloads, flags, uncertain)
 
         self._run(_finish)
+        if any(d.type == "cuda" for d in self.mesh):
+            mark_warm()  # this process now uses the card
         return payloads, flags, uncertain
 
     def _run(self, finish):

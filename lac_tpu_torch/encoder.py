@@ -4,36 +4,43 @@
 group of equal-length channel blocks, the predictor candidate, the
 residual mode and the partitioning with the reference's exact cost
 models and tie-breaks (lac_tpu/encoder.py:180-520). It returns the
-compact ``meta`` rows only; the native runtime replays the plan on the
-host and writes the bytes.
+compact ``meta`` rows, which the native runtime replays on the host into
+bytes, and on request the per-sample token codes (``ship``) that the
+numpy packer turns into bytes when the native runtime is off.
 
 u32 codes and u64 bit totals are carried in int64 (totals <= 2^46, so
 the ordering and every sum are exact); the kernels of
 :mod:`.ops.cuda_kernels` take the codes as an int32 view of their bits.
 
-``FrameEncoder`` runs the plane pipeline (:mod:`.device_pipeline`) for
-the full-block prefix and hands its payloads to its own host route
-(:meth:`FrameEncoder.encode_frame`), which plans every other block with
-the native planner and assembles the frame.
+``FrameEncoder.encode`` runs the plane pipeline (:mod:`.device_pipeline`)
+for the full-block prefix and the host route for every other lane, or
+without the native runtime the group route (:class:`ChannelBlockEncoder`
+with a device); ``FrameEncoder.encode_frame`` is the host route, which
+plans every block it is given with the native planner. Both assemble the
+same frame.
 """
 
 import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from . import check_device, resolve_device, upload
+from . import HostCopy, check_device, resolve_device, upload
+from .bitio.pack import pack_stream
 from .format import constants as C
 from .format.header import FrameHeader
 from .format.inspect import parse_block_header
-from .format.partitions import max_partition_order_for_block
+from .format.partitions import control_byte, max_partition_order_for_block
 from .format.zigzag import zigzag_encode
 from .ops import adapt, lpc, predictors, runs
 from .ops._backend import shift_right, u32_from_bits
 from .ops.cuda_kernels import k_cost_partition_sums, k_cost_sums
-from .ops.stereo import estimate_stereo_mode_host, ms_transform_host
+from .ops.stereo import estimate_stereo_mode, estimate_stereo_mode_host, ms_transform_host
 from .parallel.mesh import make_mesh
 from .runtime import native
+from .utils import debug as _dbg
 from .utils.debug import debug_log
 
 # candidate table: (predictor_type, order_param), in consideration order
@@ -43,6 +50,13 @@ _CANDIDATES = (
     + [(C.PREDICTOR_LPC, o) for o in C.LPC_ORDER_CANDIDATES]
 )
 _LPC_BASE = 6  # index of the first LPC candidate
+
+# compact token classes of ``plan_group(emit_fields=True)``'s ship codes
+CLS_RICE = 0  # rice/static/bin fallback: unary = q, tail = (rem, k + 1)
+CLS_HEAD_ONLY = 1  # bin direct tokens: head bits only
+CLS_RUN = 2  # zero-run token: payload = run length
+CLS_ESCAPE = 3  # 32-bit zigzag escape: tail = (payload, 32)
+CLS_SILENT = 4  # inside a run: emits nothing
 _INT64_MAX = torch.iinfo(torch.int64).max
 
 
@@ -131,13 +145,19 @@ def _ptype_table(device):
     return torch.tensor([t for t, _ in _CANDIDATES], dtype=torch.int64, device=device)
 
 
-def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled):
+def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False):
     """pcm (B, n) + LPC candidates -> plan ``meta`` (B, 3 + 2 * max_parts) int8:
     selected candidate, partition order, lane in-range flag, then the
     partition modes and ks (lac_tpu/encoder.py:443-459).
 
     ``lpc_coeffs``: (5, B, 13) int16 Q15 candidate sets; ``lpc_valid``:
     (5, B) bool. Everything runs on ``pcm``'s device.
+
+    With ``emit_fields`` the result is ``(meta, ship)``: ``ship`` (B, 6n)
+    uint8 holds each sample's compact token code, its u32 payload in
+    little-endian bytes, then ``headcode = cls | head_val << 3 | head_len
+    << 6`` and k (lac_tpu/encoder.py:461-502), what
+    :meth:`ChannelBlockEncoder._emit` packs when there is no native replay.
     """
     dev = pcm.device
     B = pcm.shape[0]
@@ -168,7 +188,7 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     pos = torch.arange(n, device=dev)
     run_len, long_run, run_start = runs.zero_run_info(residuals == 0, pos, n)
     rice_per, bin_per, zr_per = _mode_cost_fields(residuals, u, k_used, run_len, long_run, run_start)
-    del k_used, run_len, long_run
+    del run_len, long_run
     rice_bits = rice_per.sum(dim=-1)
     bin_bits = bin_per.sum(dim=-1)
     zr_bits = zr_per.sum(dim=-1)
@@ -191,7 +211,8 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     sel3 = sel_idx[:, None, None].expand(B, 1, n)
     v_w = residuals.gather(1, sel3)[:, 0]
     u_w = u.gather(1, sel3)[:, 0]
-    del residuals, u, u32
+    e_k = k_used.gather(1, sel3)[:, 0] if emit_fields else None  # the winner's adapted k
+    del residuals, u, u32, k_used
     initial_k_w = g2(initial_k)
     static_k_w = g2(static_k)
 
@@ -221,9 +242,16 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     sel_modes[:, 0] = base_mode
     sel_ks[:, 0] = base_k
 
-    if max_p > 0:
+    if max_p > 0 or emit_fields:
         zw0 = v_w == 0
         last_nz, next_nz = runs.zero_breaks(zw0)
+    if emit_fields:
+        # emission state of the chosen plan, the whole block's until the
+        # sweep accepts a finer partitioning for a lane
+        e_rl, e_long, e_start = runs.run_geometry(zw0, last_nz, next_nz, pos, n)
+        e_mode = base_mode[:, None].expand(B, n)
+        e_kfield = base_k[:, None].expand(B, n)
+    if max_p > 0:
         u_w32 = u_w.to(torch.int32)
         zero1 = torch.zeros((B, 1), dtype=torch.int64, device=dev)
         csz_hi = torch.cat([zero1, torch.cumsum(u_w >> 16, dim=-1)], dim=-1)  # (B, n+1)
@@ -322,13 +350,62 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
         am = accept[:, None]
         sel_modes[:, :nparts] = torch.where(am, mode_s, sel_modes[:, :nparts])
         sel_ks[:, :nparts] = torch.where(am, k_s, sel_ks[:, :nparts])
+        if emit_fields:
+            e_k = torch.where(am, k_used_p, e_k)
+            e_mode = torch.where(am, rep(mode_s), e_mode)
+            e_kfield = torch.where(am, rep(k_s), e_kfield)
+            e_rl = torch.where(am, rl_p, e_rl)
+            e_long = torch.where(am, long_p, e_long)
+            e_start = torch.where(am, start_p, e_start)
 
     # overflow only matters for candidates actually under consideration
     # (the reference skips unstable/zero-order candidates before ever
     # computing a residual, block/encoder.cpp:395-398)
     lane_in_range = (lpc_in_range | ~lpc_valid).all(dim=0)
     cols = [sel_idx[:, None], best_p[:, None], lane_in_range[:, None], sel_modes, sel_ks]
-    return torch.cat([c.to(torch.int8) for c in cols], dim=-1)
+    meta = torch.cat([c.to(torch.int8) for c in cols], dim=-1)
+    if not emit_fields:
+        return meta
+    return meta, _ship_fields(v_w, u_w, e_k, e_mode, e_kfield, e_rl, e_long, e_start)
+
+
+def _ship_fields(v_w, u_w, k_adapt, mode, kfield, run_len, long_run, run_start):
+    """The chosen plan's compact token codes (lac_tpu/encoder.py:461-502):
+    (B, n) per-sample emission state -> ship (B, 6n) uint8."""
+    B, n = v_w.shape
+    k_eff = torch.where(mode == C.MODE_STATIC, kfield, k_adapt).to(torch.int64)
+    is_bin = mode == C.MODE_BIN
+    is_zr = mode == C.MODE_ZERO_RUN
+    absv = v_w.to(torch.int64).abs()
+    sign = (v_w < 0).to(torch.int64)
+    escape = is_zr & ~long_run & (u_w > (1 << torch.clamp(k_eff + C.ESCAPE_K_OFFSET, max=C.ESCAPE_K_CAP)))
+    zr_run = is_zr & run_start
+    silent = is_zr & long_run & ~run_start
+    zr_normal = is_zr & ~long_run & ~escape
+
+    zero = torch.zeros_like(absv)
+    cls = torch.where(is_bin & (absv <= 2), CLS_HEAD_ONLY, zero)  # CLS_RICE elsewhere
+    head_val = torch.where(is_bin & (absv == 0), C.BIN_TAG_ZERO, zero)
+    head_len = torch.where(is_bin & (absv == 0), 2, zero)
+    for tag, cond in ((C.BIN_TAG_ONE, absv == 1), (C.BIN_TAG_TWO, absv == 2)):
+        head_val = torch.where(is_bin & cond, (tag << 1) | sign, head_val)
+        head_len = torch.where(is_bin & cond, 3, head_len)
+    head_val = torch.where(is_bin & (absv > 2), C.BIN_TAG_FALLBACK, head_val)
+    head_len = torch.where(is_bin & (absv > 2), 2, head_len)
+    head_val = torch.where(zr_normal, C.ZR_TAG_NORMAL, head_val)
+    head_len = torch.where(zr_normal, 2, head_len)
+    for cond, c, tag in ((zr_run, CLS_RUN, C.ZR_TAG_RUN), (escape, CLS_ESCAPE, C.ZR_TAG_ESCAPE)):
+        cls = torch.where(cond, c, cls)
+        head_val = torch.where(cond, tag, head_val)
+        head_len = torch.where(cond, 2, head_len)
+    cls = torch.where(silent, CLS_SILENT, cls)
+    head_val = torch.where(silent, 0, head_val)
+    head_len = torch.where(silent, 0, head_len)
+
+    headcode = cls | (head_val << 3) | (head_len << 6)
+    payload = torch.where(zr_run, run_len.to(torch.int64), u_w)  # u32 values
+    fields = [(payload >> (8 * i)) & 0xFF for i in range(4)] + [headcode, k_eff]
+    return torch.stack([f.to(torch.uint8) for f in fields], dim=-1).reshape(B, n * 6)
 
 
 # ======================================================================= host
@@ -363,15 +440,15 @@ def expand_plan(meta, coeffs, used, mvo, n, partitioning_enabled):
     (ptype u8, order u8, coeffs_lane (B,33) i16, best_p u8, modes (B,256)
     u8, ks (B,256) u8).
 
-    Every lane must be in range. The JAX package replans an out-of-range
-    lane down the LPC order ladder (lac_tpu/encoder.py:762); validated
-    PCM never needs it: |x| <= 2^24 (a 24-bit side channel) and 12 Q15
-    taps give |prediction| < 12 * 2^24, so every residual fits int32.
+    Every lane must be in range: a lane whose LPC residual left int32 is
+    replanned down the order ladder first (``_GroupJob._ladder_replan``).
+    Validated PCM never leaves it: |x| <= 2^24 (a 24-bit side channel) and
+    12 Q15 taps give |prediction| < 12 * 2^24.
     """
     B = meta.shape[0]
     sel = meta[:, 0].astype(np.int32)
     best_p = meta[:, 1].astype(np.int32)
-    assert np.all(meta[:, 2] != 0), "an LPC residual left int32: the input is outside the validated PCM range"
+    assert np.all(meta[:, 2] != 0), "an LPC residual left int32: such lanes take the ladder replan"
     max_p0 = max_partition_order_for_block(n) if (partitioning_enabled and n >= C.MIN_PARTITION_SIZE) else 0
     max_parts = 1 << max_p0
     modes = np.zeros((B, 256), np.uint8)
@@ -400,53 +477,372 @@ def replay_payloads(pcm, meta, coeffs, used, mvo, n, partitioning_enabled, threa
     return native.emit_blocks(pcm, *plan, thread_count)
 
 
+# The default of LAC_TPU_COLD_BLOCKS: the longest input on which the host
+# route beat a cold card in every turn, one-shot CLI encodes in fresh
+# processes on an H100 host of 8 cores (profile_cold.py: 8-1024 blocks;
+# 1536 split the turns, the card won at 2040).
+COLD_BLOCKS = 1024
+
+
+def _cold_route(nblocks):
+    """True when an encode of ``nblocks`` blocks on a card should take the
+    host route instead, so a one-shot call starts no CUDA context
+    (lac_tpu/encoder.py:41-72; the reference CLI is millisecond-class,
+    main.cpp:600-709).
+
+    Only while this process has not used the card
+    (:func:`.device_pipeline.process_warm`), only for at most
+    ``LAC_TPU_COLD_BLOCKS`` blocks (default :data:`COLD_BLOCKS`, about 6.3
+    minutes of 44.1 kHz audio; 0 turns routing off), and only with the
+    native runtime, which plans at C++ speed. The caller asks only for an
+    encoder on a card: a ``device="cpu"`` encoder never routes. The
+    streaming route decides once for the whole file, not per chunk.
+    """
+    try:
+        thr = int(os.environ.get("LAC_TPU_COLD_BLOCKS", COLD_BLOCKS))
+    except ValueError:
+        thr = COLD_BLOCKS
+    if thr <= 0 or nblocks > thr:
+        return False
+    from . import device_pipeline
+
+    return not device_pipeline.process_warm() and native.native_available()
+
+
+class _GroupJob:
+    """One batch of a lane group through three phases, so the frame
+    encoder overlaps uploads, device work, device->host copies and host
+    packing across groups (lac_tpu/encoder.py:630-840):
+
+    1. ``dispatch_autocorr``: upload the PCM (int16 for 16-bit content)
+       and fetch its exact lags;
+    2. ``dispatch_plan``: the host's 80-bit Levinson-Durbin on the lags,
+       then ``plan_group`` queued on the device, its ``meta`` (and, with
+       no native replay, its ``ship``) copied back without blocking;
+    3. ``finish``: payload bytes, by native replay or by the token packer.
+
+    Lanes of the two hot lengths (16384 and the 256-sample probes), or a
+    batch of at least 2^22 samples, go to the encoder's device; the
+    others take the host route: the native planner and replay or, under
+    ``LAC_TPU_NO_NATIVE=1``, ``plan_group`` on CPU tensors (its kernels'
+    plain versions) and the token packer.
+    """
+
+    _HOT_SHAPES = (C.MAX_BLOCK_SIZE, C.STEREO_PROBE_SIZE)
+    _MIN_DEVICE_ELEMS = 1 << 22
+
+    def __init__(self, enc, pcm_np):
+        self.enc = enc
+        self.pcm_np = pcm_np
+        self.B, self.n = pcm_np.shape
+        self.on_device = enc.device is not None and (
+            self.n in self._HOT_SHAPES or self.B * self.n >= self._MIN_DEVICE_ELEMS)
+
+    def dispatch_autocorr(self):
+        if not self.on_device:
+            return
+        from . import device_pipeline
+
+        enc, B, n = self.enc, self.B, self.n
+        self.dev = dev = enc.plan_device()
+        # pad rows only to a multiple of the mesh (no fixed executable shapes)
+        nd = len(enc.mesh) if enc.mesh is not None else 1
+        self.Bp = -(-B // nd) * nd
+        small = int(self.pcm_np.min(initial=0)) >= -32768 and int(self.pcm_np.max(initial=0)) <= 32767
+        with _dbg.phase("h2d_upload", dev):
+            pcm_pad = np.zeros((self.Bp, n), np.int16 if small else np.int32)
+            pcm_pad[:B] = self.pcm_np
+            self.pcm_pad = pcm_pad
+            self.pcm_dev = upload(pcm_pad, dev)
+        self.need_lpc = any(c <= _max_valid_order(n) for c in C.LPC_ORDER_CANDIDATES)
+        if self.need_lpc:
+            # exact int64 lags on the device; the LD that needs them is next
+            with _dbg.phase("autocorr_fetch", dev):
+                self.R_np = lpc.autocorrelation(self.pcm_dev, 12).cpu().numpy()[:B]
+        if dev.type == "cuda":
+            device_pipeline.mark_warm()  # this process now uses the card
+
+    def dispatch_plan(self):
+        enc, B, n = self.enc, self.B, self.n
+        self.replay = native.native_available()
+        if not self.on_device:
+            with _dbg.phase("plan_numpy"):
+                coeffs, used, lvalid, mvo = enc.lpc_analysis(self.pcm_np, n)
+                if self.replay:  # the native planner: plan_group's meta rows at C++ speed
+                    ship = None
+                    meta = native.plan_blocks(self.pcm_np, coeffs, lvalid, enc.zero_run_enabled,
+                                              enc.partitioning_enabled, enc.thread_count)
+                else:
+                    meta, ship = _plan_on_host(self.pcm_np, coeffs, lvalid, n, enc, emit_fields=True)
+                self._result = (ship, meta, coeffs, used, lvalid, mvo)
+            return
+        R = self.R_np if self.need_lpc else None
+        with _dbg.phase("host_ld"):
+            self.coeffs, self.used, self.lvalid, self.mvo = enc.lpc_analysis(self.pcm_np, n, precomputed_R=R)
+        with _dbg.phase("plan_dispatch", self.dev):
+            pad = self.Bp - B
+            coeffs_pad = np.pad(self.coeffs, ((0, 0), (0, pad), (0, 0)))
+            lvalid_pad = np.pad(self.lvalid, ((0, 0), (0, pad)))
+            if enc.mesh is not None:
+                from .parallel.mesh import plan_group_sharded
+
+                self.fut = plan_group_sharded(enc.mesh, self.pcm_pad, coeffs_pad, lvalid_pad, n,
+                                              enc.zero_run_enabled, enc.partitioning_enabled,
+                                              emit_fields=not self.replay)
+                return
+            ct, vt = plan_inputs_to_torch(coeffs_pad, lvalid_pad, self.dev)
+            out = plan_group(self.pcm_dev, ct, vt, n, enc.zero_run_enabled, enc.partitioning_enabled,
+                             emit_fields=not self.replay)
+            out = (out,) if self.replay else out
+            self.copies = dict(zip(("meta", "ship"), (HostCopy(t) for t in out)))
+
+    def _fetched(self, key):
+        if self.enc.mesh is not None:
+            return self.fut[key][: self.B]
+        return self.copies[key].numpy()[: self.B]
+
+    def _ladder_replan(self, pcm_rows, coeffs_rows, used_rows, lvalid_rows, mvo):
+        """Replan lanes whose open-loop LPC residual left int32 at some
+        candidate order (lpc.cpp:188-229) on the host: each candidate's
+        coefficients are cut to the highest ladder order that stays in
+        range (order 0 drops the candidate, block/encoder.cpp:401-403),
+        then the lanes are planned again with the reference's selection."""
+        enc, n = self.enc, self.n
+        coeffs2, used2, lvalid2 = coeffs_rows.copy(), used_rows.copy(), lvalid_rows.copy()
+        for li, cand in enumerate(C.LPC_ORDER_CANDIDATES):
+            for row in range(pcm_rows.shape[0]):
+                if not lvalid2[li, row]:
+                    continue
+                o = predictors.lpc_ladder_order(pcm_rows[row], coeffs2[li, row], used2[li, row], cand)
+                if o == 0:
+                    lvalid2[li, row] = False
+                else:
+                    used2[li, row] = o
+                    coeffs2[li, row, o + 1 :] = 0
+        meta2, ship2 = _plan_on_host(pcm_rows, coeffs2, lvalid2, n, enc, emit_fields=not self.replay)
+        assert np.all(meta2[:, 2] != 0), "ladder-truncated lanes must be in range"
+        if self.replay:
+            return replay_payloads(pcm_rows, meta2, coeffs2, used2, mvo, n, enc.partitioning_enabled,
+                                   enc.thread_count)
+        return enc._emit(ship2, meta2, coeffs2, used2, mvo, pcm_rows.shape[0], n)
+
+    def _payloads(self, pcm, ship, meta, coeffs, used, lvalid, mvo):
+        """Payloads of every lane; lanes whose LPC residual left int32
+        (``meta[:, 2] == 0``) go through :meth:`_ladder_replan` and are
+        spliced back in order."""
+        enc, n = self.enc, self.n
+        bad = meta[:, 2] == 0
+        out = [None] * pcm.shape[0]
+        for rows, is_bad in ((np.nonzero(~bad)[0], False), (np.nonzero(bad)[0], True)):
+            if not len(rows):
+                continue
+            if is_bad:
+                with _dbg.phase("ladder_replan"):
+                    sub = self._ladder_replan(pcm[rows], coeffs[:, rows], used[:, rows], lvalid[:, rows], mvo)
+            elif self.replay:
+                with _dbg.phase("native_emit"):
+                    sub = replay_payloads(pcm[rows], meta[rows], coeffs[:, rows], used[:, rows], mvo, n,
+                                          enc.partitioning_enabled, enc.thread_count)
+            else:
+                with _dbg.phase("host_emit"):
+                    sub = enc._emit(ship[rows], meta[rows], coeffs[:, rows], used[:, rows], mvo, len(rows), n)
+            for i, pb in zip(rows, sub):
+                out[i] = pb
+        return out
+
+    def finish(self):
+        if not self.on_device:
+            ship, meta, coeffs, used, lvalid, mvo = self._result
+            return self._payloads(self.pcm_np, ship, meta, coeffs, used, lvalid, mvo)
+        with _dbg.phase("meta_fetch"):
+            meta = self._fetched("meta")
+        ship = None
+        if not self.replay:
+            with _dbg.phase("ship_fetch"):
+                ship = self._fetched("ship")
+        return self._payloads(self.pcm_np, ship, meta, self.coeffs, self.used, self.lvalid, self.mvo)
+
+
+def _max_valid_order(n):
+    return min(32, n - 1) if n > 1 else 0
+
+
+def _plan_on_host(pcm, coeffs, lvalid, n, enc, emit_fields):
+    """``plan_group`` on CPU tensors (the kernels' plain versions) ->
+    numpy (meta, ship), ship None without ``emit_fields``."""
+    out = plan_group(torch.from_numpy(np.ascontiguousarray(pcm)), torch.from_numpy(coeffs),
+                     torch.from_numpy(lvalid), n, enc.zero_run_enabled, enc.partitioning_enabled,
+                     emit_fields=emit_fields)
+    return (out[0].numpy(), out[1].numpy()) if emit_fields else (out.numpy(), None)
+
+
 class ChannelBlockEncoder:
-    """Host route for groups of equal-length channel blocks: native
+    """Groups of equal-length channel blocks -> wire payloads
+    (lac_tpu/encoder.py:843-1032).
+
+    ``device`` None (the default) is the host route: native
     autocorrelation, the 80-bit Levinson-Durbin, the native planner and
-    native plan replay (the numpy/native branch of
-    lac_tpu/encoder.py:843-1037). Output bytes do not depend on how
-    lanes are batched."""
+    native plan replay. With a ``device`` ("cuda", or "cpu" for CPU
+    tensors) the hot lengths are planned there by :class:`_GroupJob`,
+    over the cards of ``mesh`` when one is given. Under
+    ``LAC_TPU_NO_NATIVE=1`` every plan is ``plan_group``'s and every
+    payload is packed from its token codes. Output bytes depend on none
+    of this, nor on how lanes are batched.
+    """
 
-    GROUP_LANES = 256  # lanes per native call: bounds the emit buffers
+    # device batches: 128 lanes of 16384 samples, 1024 probe lanes
+    MAX_DEVICE_ELEMS = 128 * 16384
+    GROUP_LANES = 256  # lanes per native host-route call: bounds the emit buffers
 
-    def __init__(self, zero_run_enabled=True, partitioning_enabled=True, thread_count=0, mesh=None):
+    def __init__(self, zero_run_enabled=True, partitioning_enabled=True, thread_count=0, mesh=None, device=None):
         self.zero_run_enabled = bool(zero_run_enabled)
         self.partitioning_enabled = bool(partitioning_enabled)
         self.thread_count = int(thread_count)
-        self.mesh = mesh  # kept as the reference keeps it; the host route plans on the host
+        self.mesh = mesh  # spreads device plans over its cards (:func:`.parallel.make_mesh`)
+        self.device = check_device(device) if device is not None else None
 
-    def lpc_analysis(self, pcm, n):
-        """(B, n) int32 -> LPC candidate arrays (see :func:`lpc_candidates_from_lags`)."""
+    def plan_device(self):
+        """The device a device-route batch is uploaded and planned on
+        (the mesh's first card when there is a mesh); starts the CUDA
+        context."""
+        self.device = resolve_device(self.mesh[0] if self.mesh is not None else self.device)
+        return self.device
+
+    def lpc_analysis(self, pcm, n, precomputed_R=None):
+        """(B, n) int32 -> LPC candidate arrays (see :func:`lpc_candidates_from_lags`).
+        Lags from ``precomputed_R``, else the native runtime or, without it,
+        exact int64 torch on the host."""
         B = pcm.shape[0]
-        max_valid_order = min(32, n - 1) if n > 1 else 0
-        if not any(c <= max_valid_order for c in C.LPC_ORDER_CANDIDATES):
+        if not any(c <= _max_valid_order(n) for c in C.LPC_ORDER_CANDIDATES):
             ncl = len(C.LPC_ORDER_CANDIDATES)
             return (np.zeros((ncl, B, 13), np.int16), np.zeros((ncl, B), np.int32),
-                    np.zeros((ncl, B), bool), max_valid_order)
-        return lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
+                    np.zeros((ncl, B), bool), _max_valid_order(n))
+        R = precomputed_R
+        if R is None:
+            R = (native.autocorr(pcm, 12) if native.native_available()
+                 else lpc.autocorrelation(torch.from_numpy(pcm), 12).numpy())
+        return lpc_candidates_from_lags(R, n)
+
+    def _batch_cap(self, n):
+        if self.device is not None:
+            cap = max(1, self.MAX_DEVICE_ELEMS // max(n, 1))
+            return min(1 << (cap.bit_length() - 1), 1024)
+        if native.native_available():
+            return self.GROUP_LANES
+        # plan_group on the host: keep the (B, 11, n) int64 working set small
+        return max(1, (self.MAX_DEVICE_ELEMS // 8) // max(n, 1))
+
+    def make_jobs(self, pcm):
+        """Split a group into batch jobs (see :class:`_GroupJob`)."""
+        pcm_np = np.ascontiguousarray(pcm, dtype=np.int32)
+        step = self._batch_cap(pcm_np.shape[1])
+        return [_GroupJob(self, pcm_np[lo : lo + step]) for lo in range(0, max(pcm_np.shape[0], 1), step)]
+
+    def encode_group_async(self, pcm):
+        """Dispatch all device work for a (B, n) group; returns a finisher
+        that gives the list of payload bytes."""
+        jobs = self.make_jobs(pcm)
+        for j in jobs:
+            j.dispatch_autocorr()
+        for j in jobs:
+            j.dispatch_plan()
+        return lambda: [pb for j in jobs for pb in j.finish()]
 
     def encode_group(self, pcm):
         """Encode a (B, n) int32 group; returns the list of payload bytes."""
-        pcm = np.ascontiguousarray(pcm, dtype=np.int32)
-        n = pcm.shape[1]
-        out = []
-        for lo in range(0, pcm.shape[0], self.GROUP_LANES):
-            sub = pcm[lo : lo + self.GROUP_LANES]
-            coeffs, used, lvalid, mvo = self.lpc_analysis(sub, n)
-            meta = native.plan_blocks(sub, coeffs, lvalid, self.zero_run_enabled, self.partitioning_enabled,
-                                      self.thread_count)
-            out += replay_payloads(sub, meta, coeffs, used, mvo, n, self.partitioning_enabled, self.thread_count)
-        return out
+        return self.encode_group_async(pcm)()
 
     def encode_lanes(self, data_list):
-        """Encode channel blocks of any lengths (grouped by length); payloads in order."""
+        """Encode channel blocks of any lengths; payloads in order. Lanes
+        are grouped by length and every group's jobs go through the three
+        phases together, so uploads, device work, copies and host packing
+        overlap across groups (lac_tpu/encoder.py:1299-1322)."""
         out = [None] * len(data_list)
         by_len = {}
         for i, d in enumerate(data_list):
             by_len.setdefault(len(d), []).append(i)
-        for idxs in by_len.values():
-            for i, pb in zip(idxs, self.encode_group(np.stack([data_list[i] for i in idxs]))):
+        with _dbg.phase("group_stage"):
+            staged = [(idxs, self.make_jobs(np.stack([data_list[i] for i in idxs]))) for idxs in by_len.values()]
+        for _, jobs in staged:
+            for j in jobs:
+                j.dispatch_autocorr()
+        for _, jobs in staged:
+            for j in jobs:
+                j.dispatch_plan()
+        for idxs, jobs in staged:
+            for i, pb in zip(idxs, (pb for j in jobs for pb in j.finish())):
                 out[i] = pb
+        return out
+
+    def _emit(self, ship, meta, coeffs, used, max_valid_order, B, n):
+        """Payload bytes from ``plan_group``'s token codes
+        (lac_tpu/encoder.py:915-1032): ``ship`` expands to (head, unary,
+        tail) fields, interleaved for every lane at once; each lane's wire
+        prefix (predictor header, Q15 coefficients, control byte,
+        partition metadata) is a short list; :func:`.bitio.pack.pack_stream`
+        packs each lane."""
+        if np.any(meta[:, 2] == 0):
+            raise ValueError("an LPC residual overflow lane reached _emit: such lanes take the ladder replan")
+        sel = meta[:, 0].astype(np.int32)
+        best_p = meta[:, 1].astype(np.int32)
+        max_p0 = max_partition_order_for_block(n) if (self.partitioning_enabled and n >= C.MIN_PARTITION_SIZE) else 0
+        max_parts = 1 << max_p0
+        sel_modes = meta[:, 3 : 3 + max_parts]
+        sel_ks = meta[:, 3 + max_parts : 3 + 2 * max_parts]
+
+        # compact codes -> (head, unary, tail) token fields
+        shipv = ship.reshape(B, n, 6)
+        payload = shipv[..., :4].copy().view("<u4")[..., 0]
+        headcode = shipv[..., 4]
+        k = shipv[..., 5].astype(np.uint32)
+        cls = headcode & 7
+        head_val = (headcode >> 3) & 7
+        head_len = headcode >> 6
+        rice_like = cls == CLS_RICE
+        is_run = cls == CLS_RUN
+        is_esc = cls == CLS_ESCAPE
+        q = payload >> k
+        rem = payload & ((np.uint32(1) << k) - np.uint32(1))
+        rl = payload - np.uint32(C.ZERO_RUN_MIN_LENGTH)
+        unary = np.where(rice_like, q, np.where(is_run, rl >> np.uint32(C.ZERO_RUN_LENGTH_K), np.uint32(0)))
+        tail_val = np.where(rice_like, rem, np.where(is_run, rl & np.uint32(3), np.where(is_esc, payload, np.uint32(0))))
+        tail_len = np.where(rice_like, k + 1, np.where(is_run, 1 + C.ZERO_RUN_LENGTH_K, np.where(is_esc, 32, 0)))
+
+        # (head, unary + tail) element pairs of every lane
+        body_u = np.zeros((B, 2 * n), dtype=np.uint32)
+        body_v = np.zeros((B, 2 * n), dtype=np.uint32)
+        body_l = np.zeros((B, 2 * n), dtype=np.uint8)
+        body_v[:, 0::2] = head_val
+        body_l[:, 0::2] = head_len
+        body_u[:, 1::2] = unary
+        body_v[:, 1::2] = tail_val
+        body_l[:, 1::2] = tail_len
+
+        out = []
+        for row in range(B):
+            ci = int(sel[row])
+            ptype, oparam = _CANDIDATES[ci]
+            pre_vals, pre_lens = [ptype], [8]
+            if ptype == C.PREDICTOR_LPC:
+                li = ci - _LPC_BASE
+                chosen_order = max(1, min(int(used[li, row]), max_valid_order))
+                pre_vals.append(chosen_order)
+                pre_lens.append(8)
+                pre_vals += [int(np.uint16(coeffs[li, row, i])) for i in range(1, chosen_order + 1)]
+                pre_lens += [16] * chosen_order
+            else:
+                pre_vals.append(oparam)
+                pre_lens.append(8)
+            p = int(best_p[row])
+            nparts = 1 << p
+            modes, ks = sel_modes[row, :nparts], sel_ks[row, :nparts]
+            pre_vals.append(control_byte(int(modes[0]), p))
+            pre_lens.append(8)
+            pre_vals += [(int(m) << 5) | int(kk) for m, kk in zip(modes, ks)]
+            pre_lens += [7] * nparts
+            out.append(pack_stream(np.concatenate([np.zeros(len(pre_vals), np.uint32), body_u[row]]),
+                                   np.concatenate([np.asarray(pre_vals, np.uint32), body_v[row]]),
+                                   np.concatenate([np.asarray(pre_lens, np.uint8), body_l[row]])))
         return out
 
 
@@ -482,7 +878,7 @@ class FrameEncoder:
     @property
     def device(self):
         """The resolved device. A CUDA context starts when this is first
-        read, so an input that never reaches the plane pipeline starts none."""
+        read, so an input that never reaches the card starts none."""
         self._device = resolve_device(self._device)
         return self._device
 
@@ -505,7 +901,8 @@ class FrameEncoder:
         self.debug_partitions = enabled
 
     def set_mesh(self, mesh):
-        """Spread the plane pipeline's chunks over ``mesh`` (a tuple of
+        """Spread the plane pipeline's chunks, and without the native
+        runtime the group route's plan batches, over ``mesh`` (a tuple of
         devices, see :func:`.parallel.make_mesh`; None: ``device`` alone).
         Output bytes are those of one device."""
         self.mesh = make_mesh(mesh) if mesh is not None else None
@@ -535,20 +932,42 @@ class FrameEncoder:
         return left, right
 
     def encode(self, left, right=()):
-        """Encode PCM channel vectors to a complete .lac frame (bytes)."""
+        """Encode PCM channel vectors to a complete .lac frame (bytes): the
+        plane pipeline for the full-block prefix, the host route for every
+        other lane, or without the native runtime the group route on this
+        encoder's device. In a process that has not used the card yet, a
+        short input takes the host route throughout (:func:`_cold_route`)."""
+        with _dbg.device_trace():
+            return self._encode(left, right)
+
+    def _encode(self, left, right):
         from . import device_pipeline
 
+        _dbg.timing_reset()
         left, right = self._channels(left, right)
+        nblocks = -(-len(left) // C.MAX_BLOCK_SIZE)
         nfull = len(left) // C.MAX_BLOCK_SIZE
-        planes = None
-        if device_pipeline.applicable(nfull):
-            if not len(right):
-                kind = "mono"
-            else:
-                kind = {C.STEREO_LR: "lr", C.STEREO_MS: "ms", C.STEREO_PER_BLOCK: "auto"}[self.stereo_mode]
-            device = self.device if self.mesh is None else None  # a mesh names its own cards
-            planes = device_pipeline.encode_full_blocks(self, left, right, nfull, kind, device, mesh=self.mesh)
-        return self._encode_frame(left, right, planes)
+        if self._device.type == "cuda" and _cold_route(nblocks):
+            out = self._encode_frame(left, right, None)
+        else:
+            planes = None
+            if device_pipeline.applicable(nfull):
+                if not len(right):
+                    kind = "mono"
+                else:
+                    kind = {C.STEREO_LR: "lr", C.STEREO_MS: "ms", C.STEREO_PER_BLOCK: "auto"}[self.stereo_mode]
+                device = self.device if self.mesh is None else None  # a mesh names its own cards
+                with _dbg.phase("plane_pipeline"):
+                    planes = device_pipeline.encode_full_blocks(self, left, right, nfull, kind, device,
+                                                                mesh=self.mesh)
+            # The lanes the plane pipeline leaves (inputs under its minimum,
+            # tails, probes) are few: with the native runtime they take the
+            # host route, which beat the card's group plans on every such
+            # input measured on the H100; without it, the group route.
+            group_device = None if native.native_available() else self._device
+            out = self._encode_frame(left, right, planes, device=group_device)
+        _dbg.timing_report(f"encode {len(left)} frames x{2 if len(right) else 1}ch")
+        return out
 
     def encode_frame(self, left, right=(), planes=None):
         """The host route: plan every block that ``planes`` does not hold
@@ -561,7 +980,32 @@ class FrameEncoder:
         """
         return self._encode_frame(*self._channels(left, right), planes)
 
-    def _encode_frame(self, left, right, planes):
+    def _stereo_decisions(self, left, right, full):
+        """(choose_ms, uncertain) of the full blocks ``full`` (a prefix):
+        one native pass, or without the native runtime the stereo proxy on
+        CPU tensors in chunks of 64 blocks over a thread pool
+        (lac_tpu/encoder.py:1210-1239)."""
+        N = C.MAX_BLOCK_SIZE
+        nf = len(full)
+        lmat, rmat = left[: nf * N].reshape(nf, N), right[: nf * N].reshape(nf, N)
+        if native.native_available():
+            return native.stereo_estimate(lmat, rmat, self.thread_count)
+
+        def decide(lo):
+            lt, rt = torch.from_numpy(lmat[lo : lo + 64]), torch.from_numpy(rmat[lo : lo + 64])
+            cm, un = estimate_stereo_mode(lt, rt, torch.ones_like(lt, dtype=torch.bool))
+            return cm.numpy(), un.numpy()
+
+        bounds = range(0, nf, 64)
+        workers = min(self.thread_count or (os.cpu_count() or 4), len(bounds))
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            parts = list(ex.map(decide, bounds))
+        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+    def _encode_frame(self, left, right, planes, device=None):
+        """Plan the blocks ``planes`` does not hold and assemble the frame:
+        on the host route, or with ``device`` through the group route
+        (:class:`ChannelBlockEncoder` on that device and this encoder's mesh)."""
         is_stereo = len(right) > 0
         stereo_mode = self.stereo_mode if is_stereo else 0
         force_ms = is_stereo and stereo_mode == C.STEREO_MS
@@ -578,68 +1022,69 @@ class FrameEncoder:
 
         # ---------------- stereo decisions for the blocks planned here
         decisions = [None] * nblocks
-        if per_block:
-            full = [bi for bi, sz in enumerate(sizes) if sz == N and bi not in plane_payloads]
-            if full:  # the full-block prefix, whenever the plane pipeline did not run
-                nf = len(full)
-                cm, un = native.stereo_estimate(left[: nf * N].reshape(nf, N), right[: nf * N].reshape(nf, N),
-                                                self.thread_count)
-                for j, bi in enumerate(full):
-                    decisions[bi] = (bool(cm[j]), bool(un[j]))
-            for bi, (s, sz) in enumerate(zip(starts, sizes)):
-                if decisions[bi] is None and bi not in plane_payloads:
-                    decisions[bi] = estimate_stereo_mode_host(left[s : s + sz], right[s : s + sz])
+        with _dbg.phase("stereo_estimate"):
+            if per_block:
+                full = [bi for bi, sz in enumerate(sizes) if sz == N and bi not in plane_payloads]
+                if full:  # the full-block prefix, whenever the plane pipeline did not run
+                    cm, un = self._stereo_decisions(left, right, full)
+                    for j, bi in enumerate(full):
+                        decisions[bi] = (bool(cm[j]), bool(un[j]))
+                for bi, (s, sz) in enumerate(zip(starts, sizes)):
+                    if decisions[bi] is None and bi not in plane_payloads:
+                        decisions[bi] = estimate_stereo_mode_host(left[s : s + sz], right[s : s + sz])
 
         # ---------------- lane planning: (block, slot) lanes, probe lanes
         # and speculative full variants for uncertain big blocks, dual
         # full variants for uncertain small blocks
-        lanes, lane_meta = [], []
-        block_flags = [None] * nblocks
-        deferred = []
-        probe_lanes, dual_lanes, spec_lanes = [], [], []
+        with _dbg.phase("lane_build"):
+            lanes, lane_meta = [], []
+            block_flags = [None] * nblocks
+            deferred = []
+            probe_lanes, dual_lanes, spec_lanes = [], [], []
 
-        def lr_channels(s, sz):
-            return [left[s : s + sz], right[s : s + sz]] if is_stereo else [left[s : s + sz]]
+            def lr_channels(s, sz):
+                return [left[s : s + sz], right[s : s + sz]] if is_stereo else [left[s : s + sz]]
 
-        def ms_channels(s, sz):
-            return list(ms_transform_host(left[s : s + sz], right[s : s + sz]))
+            def ms_channels(s, sz):
+                return list(ms_transform_host(left[s : s + sz], right[s : s + sz]))
 
-        for bi, (s, sz) in enumerate(zip(starts, sizes)):
-            if bi in plane_payloads:
-                if per_block:
-                    block_flags[bi] = plane_flags[bi]
-                continue
-            if not is_stereo:
-                lanes.append(left[s : s + sz])
-                lane_meta.append((bi, 0))
-            elif force_ms or (per_block and not decisions[bi][1] and decisions[bi][0]):
-                if per_block:
-                    block_flags[bi] = 1
-                for slot, chd in enumerate(ms_channels(s, sz)):
-                    lanes.append(chd)
-                    lane_meta.append((bi, slot))
-            elif not per_block or not decisions[bi][1]:
-                if per_block:
-                    block_flags[bi] = 0
-                for slot, chd in enumerate(lr_channels(s, sz)):
-                    lanes.append(chd)
-                    lane_meta.append((bi, slot))
-            elif sz <= C.STEREO_FULL_COMPARISON_LIMIT:  # uncertain, small
-                for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
-                    for slot, chd in enumerate(chans):
-                        dual_lanes.append((bi, variant, slot, chd))
-            else:  # uncertain, big: probes pick which speculated variant to keep
-                for ps in (s, s + (sz - C.STEREO_PROBE_SIZE) // 2, s + sz - C.STEREO_PROBE_SIZE):
-                    for chd in lr_channels(ps, C.STEREO_PROBE_SIZE):
-                        probe_lanes.append((bi, "lr", chd))
-                    for chd in ms_channels(ps, C.STEREO_PROBE_SIZE):
-                        probe_lanes.append((bi, "ms", chd))
-                for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
-                    for slot, chd in enumerate(chans):
-                        spec_lanes.append((bi, variant, slot, chd))
-                deferred.append(bi)
+            for bi, (s, sz) in enumerate(zip(starts, sizes)):
+                if bi in plane_payloads:
+                    if per_block:
+                        block_flags[bi] = plane_flags[bi]
+                    continue
+                if not is_stereo:
+                    lanes.append(left[s : s + sz])
+                    lane_meta.append((bi, 0))
+                elif force_ms or (per_block and not decisions[bi][1] and decisions[bi][0]):
+                    if per_block:
+                        block_flags[bi] = 1
+                    for slot, chd in enumerate(ms_channels(s, sz)):
+                        lanes.append(chd)
+                        lane_meta.append((bi, slot))
+                elif not per_block or not decisions[bi][1]:
+                    if per_block:
+                        block_flags[bi] = 0
+                    for slot, chd in enumerate(lr_channels(s, sz)):
+                        lanes.append(chd)
+                        lane_meta.append((bi, slot))
+                elif sz <= C.STEREO_FULL_COMPARISON_LIMIT:  # uncertain, small
+                    for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
+                        for slot, chd in enumerate(chans):
+                            dual_lanes.append((bi, variant, slot, chd))
+                else:  # uncertain, big: probes pick which speculated variant to keep
+                    for ps in (s, s + (sz - C.STEREO_PROBE_SIZE) // 2, s + sz - C.STEREO_PROBE_SIZE):
+                        for chd in lr_channels(ps, C.STEREO_PROBE_SIZE):
+                            probe_lanes.append((bi, "lr", chd))
+                        for chd in ms_channels(ps, C.STEREO_PROBE_SIZE):
+                            probe_lanes.append((bi, "ms", chd))
+                    for variant, chans in (("lr", lr_channels(s, sz)), ("ms", ms_channels(s, sz))):
+                        for slot, chd in enumerate(chans):
+                            spec_lanes.append((bi, variant, slot, chd))
+                    deferred.append(bi)
 
-        enc = ChannelBlockEncoder(self.zero_run_enabled, self.partitioning_enabled, self.thread_count)
+        enc = ChannelBlockEncoder(self.zero_run_enabled, self.partitioning_enabled, self.thread_count,
+                                  mesh=self.mesh if device is not None else None, device=device)
         payloads = enc.encode_lanes(
             lanes + [d for *_, d in probe_lanes] + [d for *_, d in dual_lanes] + [d for *_, d in spec_lanes]
         )
@@ -682,26 +1127,28 @@ class FrameEncoder:
                            plane_uncertain, block_channel_payloads)
 
         # ---------------- assembly
-        hdr = FrameHeader(channels=2 if is_stereo else 1, stereo_mode=stereo_mode,
-                          sample_rate=self.sample_rate, bit_depth=self.bit_depth, version=C.FORMAT_VERSION)
-        parts = []
-        block_lens = np.empty(nblocks, np.int64)
-        for bi in range(nblocks):
-            blen = 0
-            if per_block:
-                parts.append(bytes([block_flags[bi]]))
-                blen += 1
-            chans = block_channel_payloads[bi]
-            for slot in sorted(chans):
-                parts.append(chans[slot])
-                blen += len(chans[slot])
-            block_lens[bi] = blen
-        if block_lens.min() == 0 or block_lens.max() > 0xFFFFFFFF:
-            raise RuntimeError("encoded block size is outside format limits")
-        table = np.empty((nblocks, 2), dtype=">u4")
-        table[:, 0] = np.asarray(sizes, np.int64)
-        table[:, 1] = block_lens
-        return hdr.pack() + nblocks.to_bytes(4, "big") + table.tobytes() + b"".join(parts)
+        with _dbg.phase("assembly"):
+            hdr = FrameHeader(channels=2 if is_stereo else 1, stereo_mode=stereo_mode,
+                              sample_rate=self.sample_rate, bit_depth=self.bit_depth, version=C.FORMAT_VERSION)
+            parts = []
+            block_lens = np.empty(nblocks, np.int64)
+            for bi in range(nblocks):
+                blen = 0
+                if per_block:
+                    parts.append(bytes([block_flags[bi]]))
+                    blen += 1
+                chans = block_channel_payloads[bi]
+                for slot in sorted(chans):
+                    parts.append(chans[slot])
+                    blen += len(chans[slot])
+                block_lens[bi] = blen
+            if block_lens.min() == 0 or block_lens.max() > 0xFFFFFFFF:
+                raise RuntimeError("encoded block size is outside format limits")
+            table = np.empty((nblocks, 2), dtype=">u4")
+            table[:, 0] = np.asarray(sizes, np.int64)
+            table[:, 1] = block_lens
+            out = hdr.pack() + nblocks.to_bytes(4, "big") + table.tobytes() + b"".join(parts)
+        return out
 
     def _debug_report(self, is_stereo, per_block, force_ms, stereo_mode, sizes, block_flags, decisions,
                       plane_uncertain, block_channel_payloads):

@@ -3,7 +3,9 @@
 Encode side, on tensors (predictors.py:36-73): fixed orders 0-4
 (binomial differencing, raw warmup samples), FIR taps {3,-1} >> 2, and
 the Q15 LPC dot over preceding original samples with its int32
-in-range flag.
+in-range flag; and, in numpy for one lane on the host,
+:func:`lpc_ladder_order`, the order ladder of a lane whose LPC residual
+leaves int32.
 
 Decode side (predictors.py:116-240): numpy on the host for the
 decoder's Python block reader, which restores one block at a time and
@@ -69,6 +71,35 @@ def lpc_residual(x, coeffs_q15, order):
 # |delta^m x| <= 2^(31+m) <= 2^36 for m <= 5; beyond it the final samples
 # cannot all fit int32, so the reference would reject too.
 _STAGE_BOUND = 1 << 37
+
+
+def lpc_ladder_order(x, coeffs_q15, start_order, max_order):
+    """Walk the residual-overflow fallback ladder for one lane, in numpy
+    int64 (lac_tpu/ops/predictors.py:76; reference ``compute_residual_q15``,
+    lpc.cpp:188-229, through build_residual_attempt_orders, lpc.cpp:24-36):
+    try ``start_order``, then each ladder order below it, then 0. Returns
+    the first order whose open-loop residual stays in int32 (0: the
+    candidate is dropped, block/encoder.cpp:401-403).
+
+    Zeroing ``coeffs_q15[o+1:]`` afterwards makes the full-order residual
+    the ``o``-tap residual (warmup taps already clamp to ``min(order,
+    n)``), so the planner can score truncated coefficient sets as they are.
+    """
+    start_order = max(0, min(int(start_order), int(max_order)))
+    attempts = [start_order]
+    attempts += [o for o in C.LPC_FALLBACK_ORDERS if o < start_order and o <= max_order]
+    attempts.append(0)
+    x64 = np.asarray(x, dtype=np.int64)
+    for o in attempts:
+        if o <= 0:
+            return 0
+        acc = np.zeros_like(x64)
+        for i in range(1, o + 1):
+            acc[i:] += int(coeffs_q15[i]) * x64[:-i]
+        diff = x64 - (acc >> 15)
+        if diff.size == 0 or (diff.min() >= C.INT32_MIN and diff.max() <= C.INT32_MAX):
+            return o
+    return 0
 
 
 def _in_int32(y):

@@ -19,10 +19,10 @@ is the reference's batch-sharded plan, for callers that hold one plan
 batch.
 
 Against ``lac_tpu.parallel.mesh``: there is no ``shard_map`` and no
-collective. ``plan_group_sharded`` returns ``meta`` on the host and the
-planned-lane count as ``total_token_bits`` (the reference's
-``emit_fields=False`` value); ``emit_fields=True`` and its ``ship``
-token fields are not ported.
+collective. ``plan_group_sharded`` returns ``meta`` (and, with
+``emit_fields``, ``ship``) on the host, and sums ``total_token_bits`` on
+the host: the planned-lane count, or with ``emit_fields`` the token bits
+that the reference's ``psum`` adds up.
 """
 
 import os
@@ -56,12 +56,13 @@ def make_mesh(devices=None):
 
 
 def default_mesh():
-    """The product default (CLI, pooled waves, the service): every visible
-    card whenever there are two or more, as the reference's worker pool
-    uses every core without a flag. ``LAC_TPU_MESH=0`` turns it off; unset
-    or ``1`` leaves it on. ``None`` when off, without CUDA or with one
-    card. Counts the cards without starting a CUDA context. Bytes never
-    depend on the mesh: the switch is for debugging."""
+    """The product default of pooled waves and the service (the CLI's
+    one-shot encode takes it only with ``LAC_TPU_CLI_MESH=1``,
+    ``cli._one_shot_mesh``): every visible card whenever there are two or
+    more, as the reference's worker pool uses every core without a flag.
+    ``LAC_TPU_MESH=0`` turns it off; unset or ``1`` leaves it on. ``None``
+    when off, without CUDA or with one card. Counts the cards without
+    starting a CUDA context. Bytes never depend on the mesh."""
     if os.environ.get("LAC_TPU_MESH", "1") == "0":
         return None
     if not _DEFAULT_MESH_CACHE:
@@ -75,15 +76,19 @@ def _shard(a, lo, hi, axis, dev):
     return upload(np.take(a, np.arange(lo, hi), axis=axis), dev)
 
 
-def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=True, partitioning_enabled=True):
+def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=True, partitioning_enabled=True,
+                       emit_fields=False):
     """:func:`..encoder.plan_group` with the batch axis split into
     ``len(mesh)`` contiguous shards, one per mesh entry.
 
     ``pcm``: (B, n) int32 with B divisible by the mesh size (else
     ValueError); ``lpc_coeffs`` (5, B, 13) int16 and ``lpc_valid`` (5, B)
     bool, numpy arrays as the host's Levinson-Durbin gives them. Each
-    shard's inputs are copied from the host to its card and planned there. Returns ``{"meta": (B, M) int8 numpy in lane order,
-    "total_token_bits": B}``."""
+    shard's inputs are copied from the host to its card and planned there.
+    Returns numpy arrays in lane order: ``{"meta": (B, M) int8,
+    "total_token_bits": B}`` or, with ``emit_fields``, ``{"meta", "ship":
+    (B, 6n) uint8, "total_token_bits"}``, the bits being each token's
+    ``q + k + 1`` (Rice-like) or 2 (lac_tpu/parallel/mesh.py:72-87)."""
     from ..encoder import plan_group
 
     B, D = pcm.shape[0], len(mesh)
@@ -94,8 +99,16 @@ def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=Tru
     for s, dev in enumerate(mesh):
         lo, hi = s * step, (s + 1) * step
         with on_card(dev):
-            meta = plan_group(_shard(pcm, lo, hi, 0, dev), _shard(lpc_coeffs, lo, hi, 1, dev),
-                              _shard(lpc_valid, lo, hi, 1, dev), n, zero_run_enabled, partitioning_enabled)
-            copies.append(HostCopy(meta))
-    return {"meta": np.concatenate([c.numpy() for c in copies]), "total_token_bits": B}
-
+            out = plan_group(_shard(pcm, lo, hi, 0, dev), _shard(lpc_coeffs, lo, hi, 1, dev),
+                             _shard(lpc_valid, lo, hi, 1, dev), n, zero_run_enabled, partitioning_enabled,
+                             emit_fields=emit_fields)
+            copies.append([HostCopy(t) for t in (out if emit_fields else (out,))])
+    result = {"meta": np.concatenate([c[0].numpy() for c in copies]), "total_token_bits": B}
+    if emit_fields:
+        ship = result["ship"] = np.concatenate([c[1].numpy() for c in copies])
+        shipv = ship.reshape(B, n, 6)
+        payload = shipv[..., :4].copy().view("<u4")[..., 0].astype(np.int64)
+        k = shipv[..., 5].astype(np.int64)
+        rice_like = (shipv[..., 4] & 7) == 0
+        result["total_token_bits"] = int(np.where(rice_like, (payload >> k) + k + 1, 2).sum())
+    return result

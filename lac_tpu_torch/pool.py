@@ -27,10 +27,13 @@ Two consumers:
   pipeline's progress callback) while later chunks are on the device.
 
 Against ``lac_tpu.pool``: there is one backend, so the ``xp=numpy``
-fallback of ``encode_pooled`` and the ``is_jax``/``native_available``
-gates are gone (a failed native build raises); planes reach an encoder
-through ``FrameEncoder.encode_frame(left, right, planes)``, not through
-a private attribute; and there is no warm-process mark.
+fallback of ``encode_pooled`` and the ``is_jax`` gate are gone; pooling
+needs the native runtime (its plane replay writes a wave's bytes), so
+under ``LAC_TPU_NO_NATIVE=1`` every job and item is encoded on its own,
+as in lac_tpu; planes reach an encoder through
+``FrameEncoder.encode_frame(left, right, planes)``, not through a
+private attribute; and a wave marks the process warm in
+``PlanePipeline.run``.
 
 A wave runs on its template encoder's mesh (:mod:`.parallel.mesh`): a
 template that :func:`run_group_wave` builds itself on the card takes
@@ -83,6 +86,7 @@ def prepare_encode_job(parts):
     """
     from . import cli
     from .io import read_wav
+    from .runtime.native import native_available
     from .stream import scan_wav
     from .utils.staged_output import paths_refer_to_same_file
 
@@ -106,6 +110,8 @@ def prepare_encode_job(parts):
         return None
     if paths_refer_to_same_file(in_path, out_path):
         return None
+    if not native_available():
+        return None  # pooled waves replay their plans natively
     # scan before read (cli.py orders the same way): a file headed for
     # the bounded-memory streaming route must not be read whole here
     # first: that is the very spike the route exists to prevent
@@ -263,10 +269,13 @@ def encode_pooled(items, sample_rate, bit_depth, stereo_mode=2, device="cuda", m
             enc._validate(left, right)
         encs.append(enc)
 
+    from .runtime.native import native_available
+
+    poolable = native_available()
     groups = {}
     for i, (left, right) in enumerate(items):
         nfull = len(left) // C.MAX_BLOCK_SIZE
-        if nfull < 1:
+        if nfull < 1 or not poolable:
             continue
         kind = "mono" if not len(right) else _MODE_KIND[stereo_mode]
         prep = PreparedEncode(parts=[], in_path="", wav=(left, right, 0, sample_rate, bit_depth), kind=kind,
@@ -286,6 +295,8 @@ def encode_pooled(items, sample_rate, bit_depth, stereo_mode=2, device="cuda", m
             run_group_wave([p for _, p in wave], stash, template_enc=encs[idxs[0]])
 
     def one(i):
+        if not poolable:  # no waves: each item on its own, as FrameEncoder.encode does
+            return encs[i].encode(*items[i])
         return encs[i].encode_frame(*items[i], planes.get(i))
 
     if len(items) <= 1 or max_workers <= 1:

@@ -121,6 +121,7 @@ def main(argv=None):
         raise SystemExit("profile_encode: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    device_pipeline.mark_warm()  # the card's path, not the cold route's host route
     left, right = gliding_stereo(7_938_000, 44100, 16, 1)
     cards = torch.cuda.device_count()
     mesh = make_mesh([f"cuda:{i % cards}" for i in range(args.mesh)]) if args.mesh else None

@@ -1,6 +1,6 @@
 """Where a card's first use goes, in fresh processes on two or more cards.
 
-    python -m lac_tpu_torch.profile_first_use [--turns N]
+    python -m lac_tpu_torch.profile_first_use [--turns N] [--cli-only]
 
 Each child is a fresh process that builds nothing (the kernels and the
 native runtime are built once, before the first child) and runs with
@@ -15,7 +15,10 @@ with ``EAGER``:
 * the 13-minute WAV (2,100 full blocks: the CLI's streaming route, two
   256-block chunks per 512-block stream chunk) through ``cli.main``, with
   the contexts of the cards it reaches started first, on one card
-  (``LAC_TPU_MESH=0``) and on the default mesh, ``N`` times in turns.
+  (the CLI's default) and on the cards that
+  ``LAC_TPU_CLI_MESH=1`` gives it (``cli._one_shot_mesh``: as many as the
+  input has chunks in flight), ``N`` times in turns; ``--cli-only`` runs
+  this part alone.
 
 Every output is held to the first one of its input (sha256). Prints the
 cards' names and power limits first.
@@ -67,9 +70,11 @@ t0 = time.perf_counter()
 import torch
 from lac_tpu_torch import cli
 from lac_tpu_torch.ops import cuda_kernels
-from lac_tpu_torch.parallel import default_mesh
+from lac_tpu_torch.cli import _one_shot_mesh
+from lac_tpu_torch.stream import scan_wav
 t1 = time.perf_counter()
-for i in range(2 if default_mesh() else 1):  # the cards the streamed chunks reach
+mesh = _one_shot_mesh(scan_wav(sys.argv[1]).frames, True)
+for i in range(len(mesh) if mesh else 1):  # the cards the CLI takes
     torch.zeros(1, device=f"cuda:{i}")
     torch.cuda.synchronize(i)
 t2 = time.perf_counter()
@@ -93,6 +98,7 @@ def _child(code, args, env, tag):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--turns", type=int, default=1, help="turns of one card and the mesh through the CLI")
+    ap.add_argument("--cli-only", action="store_true", help="only the long WAV through the CLI")
     args = ap.parse_args(argv)
     import torch
 
@@ -105,14 +111,15 @@ def main(argv=None):
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    native.get_native()
+    native.native_available()
     _cuda_lib.load()
-    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_MODULE_LOADING", "LAC_TPU_MESH")}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_MODULE_LOADING", "LAC_TPU_MESH", "LAC_TPU_CLI_MESH")}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     want = None
-    for loading in ("LAZY", "EAGER"):
-        got = _child(CARDS_CHILD, [], {**env, "CUDA_MODULE_LOADING": loading}, "FIRST")
+    for loading in () if args.cli_only else ("LAZY", "EAGER"):
+        got = _child(CARDS_CHILD, [], {**env, "CUDA_MODULE_LOADING": loading, "LAC_TPU_COLD_BLOCKS": "0"}, "FIRST")
         want = want or got["sha256"]
         if got["sha256"] != want:
             raise SystemExit("profile_first_use: the 3-minute file's bytes differ between children")
@@ -135,11 +142,11 @@ def main(argv=None):
             raise SystemExit("profile_first_use: WAV write failed")
         del left, right
         want = None
-        for loading in ("LAZY", "EAGER"):
+        for loading in ("LAZY",) if args.cli_only else ("LAZY", "EAGER"):
             for _ in range(args.turns):
                 for mesh in ("0", "1", "1", "0"):
-                    got = _child(CLI_CHILD, [wav, lac], {**env, "CUDA_MODULE_LOADING": loading, "LAC_TPU_MESH": mesh},
-                                 "CLI")
+                    got = _child(CLI_CHILD, [wav, lac],
+                                 {**env, "CUDA_MODULE_LOADING": loading, "LAC_TPU_CLI_MESH": mesh}, "CLI")
                     want = want or got["sha256"]
                     if got["rc"] != 0 or got["sha256"] != want:
                         raise SystemExit(f"profile_first_use: the long WAV through the CLI failed or differs: {got}")

@@ -6,8 +6,16 @@ The shared library is built with g++ on first use into
 holds an ``fcntl.flock`` on ``build/.lock``, compiles to a temp name
 carrying the pid and finishes with ``os.replace``, so concurrent
 processes neither race on one temp file nor load a half-written
-library. A missing compiler or a failed build raises: the port has no
-pure-Python fallback for what the runtime does.
+library. A missing compiler or a failed build raises: a build that
+fails is never taken as a reason to run without the runtime.
+
+``LAC_TPU_NO_NATIVE=1`` (the JAX package's switch,
+lac_tpu/runtime/native.py:68) is the explicit request to run without
+it: nothing is built, :func:`native_available` is False and the callers
+take their numpy/torch paths (the plan replay gives way to the token
+fields of ``encoder.plan_group(emit_fields=True)`` and the numpy packer,
+native decode to the Python reader). The switch is read when a function
+here is called, so a test may set it for one process.
 
 Only the entries the port calls are bound: plan replay
 (``lac_emit_blocks_planes``, ``lac_emit_blocks``), the host planner
@@ -88,9 +96,27 @@ def build_library():
     return out
 
 
+def disabled() -> bool:
+    """True when ``LAC_TPU_NO_NATIVE=1`` asks for no native runtime."""
+    return os.environ.get("LAC_TPU_NO_NATIVE") == "1"
+
+
+def native_available() -> bool:
+    """False under ``LAC_TPU_NO_NATIVE=1`` (nothing is built); else the
+    runtime is built and loaded if it was not yet, and True. A failed
+    build raises, as :func:`get_native` does."""
+    if disabled():
+        return False
+    get_native()
+    return True
+
+
 def get_native():
-    """The loaded ctypes library (built on first use); raises when it cannot be built."""
+    """The loaded ctypes library (built on first use); raises when it cannot
+    be built, or when ``LAC_TPU_NO_NATIVE=1`` turned it off."""
     global _lib
+    if disabled():
+        raise RuntimeError("the native runtime is turned off (LAC_TPU_NO_NATIVE=1)")
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
@@ -103,13 +129,16 @@ def get_native():
 
 def thread_collector_reset() -> None:
     """Clear the native pools' measured worker-id set (reference
-    ThreadCollector analog, thread_collector.hpp:8-23)."""
-    get_native().lac_thread_collector_reset()
+    ThreadCollector analog, thread_collector.hpp:8-23); nothing under
+    ``LAC_TPU_NO_NATIVE=1``."""
+    if not disabled():
+        get_native().lac_thread_collector_reset()
 
 
 def thread_collector_count() -> int:
-    """Distinct worker threads observed by native pools since the last reset."""
-    return int(get_native().lac_thread_collector_count())
+    """Distinct worker threads observed by native pools since the last
+    reset; 0 under ``LAC_TPU_NO_NATIVE=1`` (no native pool ran)."""
+    return 0 if disabled() else int(get_native().lac_thread_collector_count())
 
 
 def _ptr(arr, ctype):

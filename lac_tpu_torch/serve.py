@@ -147,7 +147,7 @@ def warm_process(blocks=128, device="cuda"):
     ``LAC_TPU_WARM_DEBUG=1`` writes each stage's seconds to stderr."""
     import numpy as np
 
-    from . import resolve_device
+    from . import device_pipeline, resolve_device
     from .encoder import FrameEncoder
     from .format import constants as C
     from .parallel import default_mesh, plan_group_sharded
@@ -168,17 +168,17 @@ def warm_process(blocks=128, device="cuda"):
         from .ops import _cuda_lib
 
         with ThreadPoolExecutor(2) as ex:
-            for f in [ex.submit(native.get_native), ex.submit(_cuda_lib.load)]:
+            for f in [ex.submit(native.native_available), ex.submit(_cuda_lib.load)]:
                 f.result()
     else:
-        native.get_native()
+        native.native_available()
     _stage("build")
     device = resolve_device(device)
     mesh = default_mesh() if device.type == "cuda" else None
     if mesh is not None:  # every card's context, kernels and tables, one lane each
         n = C.MAX_BLOCK_SIZE
         plan_group_sharded(mesh, np.zeros((len(mesh), n), np.int32), np.zeros((5, len(mesh), 13), np.int16),
-                           np.zeros((5, len(mesh)), bool), n)
+                           np.zeros((5, len(mesh)), bool), n, emit_fields=not native.native_available())
     _stage("context")
     # full blocks take the plane pipeline (from device_pipeline.MIN_FULL_BLOCKS
     # on), the tail just under a full block the host route
@@ -186,6 +186,8 @@ def warm_process(blocks=128, device="cuda"):
     rng = np.random.RandomState(7)
     left = rng.randint(-(1 << 14), 1 << 14, n).astype(np.int32)
     right = (left // 2 + rng.randint(-(1 << 8), 1 << 8, n)).astype(np.int32)
+    if device.type == "cuda":
+        device_pipeline.mark_warm()  # the warm-up exists to reach the card: no cold route
     nbytes = len(FrameEncoder(12, C.STEREO_PER_BLOCK, 44100, 16, device=device, mesh=mesh).encode(left, right))
     _stage("encode")
     return nbytes

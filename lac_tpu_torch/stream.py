@@ -231,7 +231,8 @@ def encode_wav_to_lac(
     temp file and atomically renamed onto ``out_path`` only on success,
     so a failed encode never leaves a partial or corrupt output.
     """
-    from .encoder import FrameEncoder
+    from . import device_pipeline
+    from .encoder import FrameEncoder, _cold_route
 
     if info is None:
         info = scan_wav(in_path)
@@ -255,6 +256,10 @@ def encode_wav_to_lac(
             raise ValueError("provided encoder's format does not match the WAV input")
 
     nblocks = -(-info.frames // C.MAX_BLOCK_SIZE)
+    if encoder._device.type == "cuda" and not _cold_route(nblocks):
+        # the whole file decides the cold route, not each chunk (every
+        # chunk may be short enough for it): the chunks go to the card
+        device_pipeline.mark_warm()
     hdr = FrameHeader(
         channels=info.channels,
         stereo_mode=effective_mode,

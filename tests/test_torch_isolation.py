@@ -102,12 +102,15 @@ def test_cli_defaults_to_the_card(no_card, capsys, argv):
 
 def test_cli_starts_the_card_only_for_an_input_that_reaches_it(tmp_path, capsys, monkeypatch):
     """With a card present (simulated), a one-shot encode of an input under
-    ``device_pipeline.MIN_FULL_BLOCKS`` full blocks is planned on the host and never
-    resolves the device (what starts the CUDA context); a longer input does."""
+    ``device_pipeline.MIN_FULL_BLOCKS`` full blocks is planned on the host
+    and never resolves the device (what starts the CUDA context). So is an
+    input of 8 full blocks in a process that has not used the card (at
+    most ``LAC_TPU_COLD_BLOCKS`` blocks: the cold route); with the cold
+    route off (``LAC_TPU_COLD_BLOCKS=0``) it reaches the card."""
     import numpy as np
 
     import lac_tpu_torch
-    from lac_tpu_torch import encoder
+    from lac_tpu_torch import device_pipeline, encoder
     from lac_tpu_torch.io import write_wav
 
     resolved = []
@@ -117,19 +120,29 @@ def test_cli_starts_the_card_only_for_an_input_that_reaches_it(tmp_path, capsys,
         raise RuntimeError("the card was resolved")
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(encoder, "resolve_device", resolve)
-    assert lac_tpu_torch.check_device("cuda").type == "cuda"
+    monkeypatch.setattr(device_pipeline, "_PROC_WARM", False)
+    monkeypatch.delenv("LAC_TPU_COLD_BLOCKS", raising=False)
     rng = np.random.RandomState(3)
     short, long_, out = (str(tmp_path / n) for n in ("short.wav", "long.wav", "out.lac"))
     for path, frames in ((short, 16384 * 7 + 100), (long_, 16384 * 8)):
         pcm = rng.randint(-3000, 3000, frames).astype(np.int32)
         assert write_wav(path, pcm, pcm // 2, 2, 44100, 16)
+    want = {path: FrameEncoder(12, 2, 44100, 16, device="cpu").encode_frame(*_pcm(path)) for path in (short, long_)}
+    monkeypatch.setattr(encoder, "resolve_device", resolve)
+    assert lac_tpu_torch.check_device("cuda").type == "cuda"
+    for path in (short, long_):
+        assert cli.main(["encode", path, out]) == 0 and resolved == []
+        with open(out, "rb") as f:
+            assert f.read() == want[path]
+        assert capsys.readouterr().out.startswith("Encoded ")
+    monkeypatch.setenv("LAC_TPU_COLD_BLOCKS", "0")
     assert cli.main(["encode", short, out]) == 0 and resolved == []
     with open(out, "rb") as f:
-        assert f.read() == FrameEncoder(12, 2, 44100, 16, device="cpu").encode(*_pcm(short))
+        assert f.read() == want[short]
     assert capsys.readouterr().out.startswith("Encoded ")
     assert cli.main(["encode", long_, out]) == 1 and resolved == ["cuda"]
     assert capsys.readouterr().err == "Error: the card was resolved\n"
+    assert not device_pipeline.process_warm()
 
 
 def _pcm(path):
