@@ -2,8 +2,9 @@
 """Smoke run of the lac_tpu_torch port on one CUDA card, and of its mesh
 on every card.
 
-    python3 chip_smoke.py           # phases 1-13; one card is enough
+    python3 chip_smoke.py           # phases 1-14; one card is enough
     python3 chip_smoke.py --mesh    # phases 1-3 and 12 alone, on every visible card
+    python3 chip_smoke.py --phase14 # phases 1-3 and 14 alone
 
 1. device: the card's name and power limit; the host must be x86-64
    (80-bit long double for Levinson-Durbin);
@@ -130,7 +131,18 @@ on every card.
     with the group route's phases, and decodes them with the Python
     reader, PCM-exact (walls, ``ship`` bytes copied back per batch, peak
     device memory); a fresh process with ``LAC_TPU_TIMING=1`` whose
-    plane-pipeline and host-route encodes print their phases.
+    plane-pipeline and host-route encodes print their phases;
+14. kernel 8 and the experiments: kernel 8, the static-Rice scan
+    tokenizer, bit-exact against its plain version on every output element
+    at the reader bench's (64, 4096) and at (256, 16384) (payloads packed by
+    the port's ``pack_rice_lanes``, a few lanes held to
+    ``encode_static_rice_np``, its tokens equal to the native tokenizer's)
+    and on adversarial lanes, timed beside its bound, a one-lane chain floor
+    and the native tokenizer; the reader experiment
+    (``bench_device_reader``) and the pack experiment
+    (``bench_device_pack``: (256, 16384) lanes under kernel 6's k sequence,
+    every lane's bytes equal to ``pack_stream`` and the native packer) with
+    their launches counted.
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -159,6 +171,7 @@ from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import DecodeError, FrameDecoder
 from lac_tpu_torch.encoder import (ChannelBlockEncoder, FrameEncoder, lpc_candidates_from_lags, plan_group,
                                    plan_inputs_to_torch)
+from lac_tpu_torch.experiments import bench_device_pack, bench_device_reader
 from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
@@ -190,9 +203,13 @@ KERNELS = {  # name -> (source, the Pallas function it replaces)
     "k_after_stateful_fused": ("lac_tpu_torch/csrc/k_after.cu", "lac_tpu/ops/pallas_adapt.py:333"),
     # port-added: replaces XLA code, a lax.scan, that eager torch cannot run as one launch
     "recurrence_restore": ("lac_tpu_torch/csrc/restore.cu", "lac_tpu/ops/predictors.py:243 (lax.scan)"),
+    "tokenize_static_rice_scan": ("lac_tpu_torch/csrc/rice_scan.cu",
+                                  "lac_tpu/ops/device_reader.py:122 (lax.scan :183)"),
 }
 RESTORE = "recurrence_restore"
-ENCODE_KERNELS = tuple(name for name in KERNELS if name != RESTORE)  # the planner's six
+SCAN = "tokenize_static_rice_scan"
+ENCODE_KERNELS = tuple(name for name in KERNELS if name not in (RESTORE, SCAN))  # the planner's six
+OWN_PATH = {RESTORE: "decode", SCAN: "reader"}  # the path that launches a kernel that no encode launches
 
 # Bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory;
 # 32-bit integer instructions at 132 SMs x 128 lanes x 1.98 GHz =
@@ -225,6 +242,12 @@ OPS_PER_ELEMENT = {
     # the 16-byte shared-memory load and device store a quarter each, the
     # tile's copies and the run's set-up amortised (1)
     RESTORE: 9,
+    # per token, the least a parse of the stream needs (a 64-bit window held
+    # in registers, where csrc/rice_scan.cu reloads eight bytes a token):
+    # the window's funnel shift (2) and its refill amortised (2), clz of ~w
+    # (3), the remainder's shifts (4), u (2), the zigzag (3), the position
+    # (2), the valid compare (1) and the two stores (2)
+    SCAN: 21,
 }
 # kernel 7, per tap of a restored sample: one float64 multiply-add (2 int32
 # equivalents); the history rotates through registers (no move). The work
@@ -595,7 +618,7 @@ def check_accounting(label, shapes, plans, counts):
     batches of a stretch they account for every counted launch. Returns
     the model (name -> launches, ms, ms over the bound)."""
     model = per_encode(shapes, plans)
-    check(all(model[k][0] == counts[k] for k in model) and counts[RESTORE] == 0,
+    check(all(model[k][0] == counts[k] for k in model) and counts[RESTORE] == counts[SCAN] == 0,
           f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
     check(counts["k_after_stateful_fused"] == plans["full"] + plans["group-full"] and
           counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"] + plans["group-probe"],
@@ -1690,8 +1713,8 @@ FrameEncoder(12, 2, 44100, 16, device="cuda").encode(left, right)  # the plane p
 label, mode, sr, depth, left, right = cs.group_inputs()[0]
 FrameEncoder(12, mode, sr, depth, device="cuda").encode(left, right)  # 7 blocks: the host route
 """
-PIPELINE_PHASES = ("plane_pipeline", "plane_upload", "flags_fetch", "host_ld", "plan_dispatch", "meta_fetch",
-                   "emit_prep", "native_emit", "stereo_estimate", "lane_build", "assembly")
+PIPELINE_PHASES = ("plane_pipeline", "plane_upload", "analyze", "flags_fetch", "host_ld", "plan_dispatch",
+                   "meta_fetch", "emit_prep", "native_emit", "stereo_estimate", "lane_build", "assembly")
 HOST_PHASES = ("stereo_estimate", "lane_build", "group_stage", "plan_numpy", "native_emit", "assembly")
 GROUP_PHASES = ("stereo_estimate", "lane_build", "group_stage", "h2d_upload", "autocorr_fetch", "host_ld",
                 "plan_dispatch", "meta_fetch", "ship_fetch", "host_emit", "assembly")  # the no-native child's
@@ -2203,12 +2226,117 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
     print(f"mesh over {len(mesh)} cards: every output == one card's bytes; {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ kernel 8 and the experiments
+
+
+def rice_scan_record(label, operands, tokens, plain_ms):
+    """Kernel 8 timed at one real shape: the kernel (CUDA graph of 20
+    launches) beside its plain version's one call (``plain_ms``), its
+    bound, the chain of one lane alone (the same kernel on lane 0: one
+    thread's dependent chain, the floor of a thread-per-lane design) and the
+    native tokenizer (host clock)."""
+    payload, k, nbits = operands
+    lanes = payload.shape[0]
+    kern = lambda _: K.tokenize_static_rice_scan(payload, k, nbits, tokens)  # noqa: E731
+    ms = min(time_ms(kern, None), time_ms(kern, None))
+    one = (payload[:1], k[:1], nbits[:1])
+    chain_ms = min(time_ms(lambda _: K.tokenize_static_rice_scan(*one, tokens), None) for _ in range(2))
+    bound_ms, bound_by = bound(SCAN, (payload, k, nbits), kern(None), ops=OPS_PER_ELEMENT[SCAN] * lanes * tokens)
+    pay_h, k_h, nb_h = (t.cpu().numpy() for t in operands)
+    native_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.tokenize_static_rice(pay_h, k_h, nb_h, tokens)
+        native_s = min(native_s, time.perf_counter() - t0)
+    print(f"    {label}: kernel {ms:.4f} ms ({ms * 1e-3 * SM_CLOCK_HZ / tokens:.0f} cycles a token at "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz), plain {plain_ms:.1f} ms (one call, no graph), bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; one lane alone {chain_ms:.4f} ms ({100 * chain_ms / ms:.0f}% "
+          f"of the kernel); native tokenizer {native_s * 1e3:.3f} ms (host, one thread); "
+          f"{lanes * tokens / ms / 1e6:.1f} G tokens/s on the card (CUDA graph of 20 launches, CUDA events)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_ms": chain_ms, "native_ms": native_s * 1e3}
+
+
+READER_SHAPES = ((64, 4096), (256, 16384))  # (lanes, tokens): the reader bench's default, a plan batch's lanes
+
+
+def check_rice_scan():
+    """Kernel 8 bit-exact against its plain version on every output element
+    at the reader bench's (64, 4096), at (256, 16384) and on adversarial
+    lanes; its tokens equal the native tokenizer's. Returns the record of
+    (256, 16384)."""
+    dev = torch.device("cuda")
+    err, record = 0, None
+    cases = [(label, *(torch.from_numpy(a).to(dev) for a in (pay, k, nb)), T, None)
+             for label, pay, k, nb, T in bench_device_reader.adversarial_batches()]
+    for lanes, tokens in READER_SHAPES:
+        ks, vals = bench_device_reader.make_lanes(np.random.RandomState(11), lanes, tokens)
+        payload, nbits = bench_device_reader.pack_lanes(vals, ks, dev)
+        bench_device_reader.check_against_spec(payload, nbits, vals, ks, sorted({0, lanes // 2, lanes - 1}))
+        want = native.tokenize_static_rice(payload.cpu().numpy(), ks, nbits.cpu().numpy(), tokens)
+        check(np.array_equal(want, vals), f"native tokenizer ({lanes}, {tokens}): differs from the encoded values")
+        cases.append((f"({lanes}, {tokens}), packed by pack_rice_lanes", payload, torch.from_numpy(ks).to(dev),
+                      nbits, tokens, want))
+    for label, payload, k, nbits, tokens, native_res in cases:
+        got = K.tokenize_static_rice_scan(payload, k, nbits, tokens)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = K.tokenize_static_rice_scan_plain(payload, k, nbits, tokens)
+        stop.record()
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]), f"{SCAN} {label}: valid flags differ from the plain version")
+        err = max(err, int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item()))
+        check(err == 0, f"{SCAN} {label}: kernel differs from its plain version (max |diff| {err})")
+        line = f"  {SCAN:22s} {label} {tuple(payload.shape)}, {tokens} tokens: exact on every element"
+        if native_res is None:
+            print(line)
+            continue
+        check(bool(got[1].all()) and np.array_equal(got[0].cpu().numpy(), native_res),
+              f"{SCAN} {label}: tokens differ from the native tokenizer's")
+        print(line + "; every token valid and == the native tokenizer's")
+        record = rice_scan_record(label, (payload, k, nbits), tokens, start.elapsed_time(stop))
+    return {"max_abs_err": float(err), **{key: record[key] for key in
+                                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def check_experiments(batches):
+    """The reader and the pack experiments through their bench scripts, launches
+    counted. Returns (the reader path's launches, the pack path's)."""
+    with Counted(batches) as reader:
+        for lanes, tokens in READER_SHAPES:
+            out = bench_device_reader.run(lanes=lanes, tokens=tokens, reps=3, device="cuda")
+            print(f"  bench_device_reader ({lanes}, {tokens}): native == pointer doubling == kernel 8 == the values; "
+                  f"best of 3, host clock: native {out['native_s'] * 1e3:.3f} ms, pointer doubling "
+                  f"{out['jump_s'] * 1e3:.3f} ms, kernel 8 {out['scan_s'] * 1e3:.3f} ms")
+    check(reader.launches[SCAN] == 8 and all(reader.launches[k] == 0 for k in KERNELS if k != SCAN),
+          f"the reader experiment: want 8 launches of kernel 8 and no other, got {reader.launches}")
+    with Counted(batches) as packed:
+        out = bench_device_pack.run(lanes=LANES, reps=3, device="cuda")
+    print(f"  bench_device_pack ({LANES}, {bench_device_pack.N}), W = {out['W']}: every lane == pack_stream == the native packer; best of 3, "
+          f"host clock: upload + emit + fetch {out['upload_emit_fetch_s'] * 1e3:.3f} ms, emit {out['emit_s'] * 1e3:.3f} "
+          f"ms, pack alone {out['pack_s'] * 1e3:.3f} ms, native packer {out['native_pack_s'] * 1e3:.3f} ms (host "
+          f"threads); {out['payload_bytes']:,} bytes of payload, {out['fetch_bytes']:,} fetched")
+    fused = "k_after_stateful_fused"
+    check(packed.launches[fused] == 8 and all(packed.launches[k] == 0 for k in KERNELS if k != fused),
+          f"the pack experiment: want 8 launches of kernel 6 and no other, got {packed.launches}")
+    return reader.launches, packed.launches
+
+
+def check_phase14(batches, records, by_path):
+    t14 = time.perf_counter()
+    print("kernel 8 vs its plain version (bit-exact):")
+    records[SCAN] = check_rice_scan()
+    print("the experiments:")
+    by_path["reader"], by_path["pack"] = check_experiments(batches)
+    print(f"phase 14 (kernel 8, the experiments): {time.perf_counter() - t14:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
-    mesh_only = sys.argv[1:] == ["--mesh"]
-    if sys.argv[1:] and not mesh_only:
-        raise SystemExit("usage: python3 chip_smoke.py [--mesh]")
+    mesh_only, phase14_only = sys.argv[1:] == ["--mesh"], sys.argv[1:] == ["--phase14"]
+    if sys.argv[1:] and not (mesh_only or phase14_only):
+        raise SystemExit("usage: python3 chip_smoke.py [--mesh | --phase14]")
     t_start = time.perf_counter()
 
     # 1. device and host
@@ -2250,6 +2378,12 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             by_path = {"mesh": check_mesh(tmp, shapes, batches, *mesh_inputs(tmp))}
         finish(t_start, records, by_path, "mesh", ENCODE_KERNELS)
+        return
+
+    if phase14_only:  # phase 14 alone: kernel 8 and kernel 6, the kernels of the experiments' paths
+        by_path = {}
+        check_phase14(count_plan_batches(), records, by_path)
+        finish(t_start, records, by_path, "pack", [SCAN, "k_after_stateful_fused"])
         return
 
     # 4. real-size encodes through the port's main path, held to the port's host route
@@ -2353,19 +2487,23 @@ def main():
         # 13. the group route: inputs under 8 full blocks, lanes outside the 24-bit domain, no native runtime
         by_path["group"] = check_group_route(tmp, shapes, batches)
 
+        # 14. kernel 8 and the experiments
+        check_phase14(batches, records, by_path)
+
     finish(t_start, records, by_path, "files", KERNELS)
 
 
 def finish(t_start, records, by_path, path, names):
     """9. the port stands alone; then the kernel record (``launches`` from
-    ``path``, kernel 7's from the decode path) and the device record."""
+    ``path``, kernels 7's and 8's from their own, ``OWN_PATH``) and the
+    device record."""
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m == "lac_tpu" or m.startswith("lac_tpu."))
     check(not ref_mods, f"lac_tpu modules were imported: {ref_mods}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": by_path["decode" if name == RESTORE else path][name],  # each kernel's own path
+         "launches": by_path[OWN_PATH.get(name, path)][name],  # each kernel's own path
          "launches_by_path": {p: n[name] for p, n in by_path.items()},
          **records[name]} for name in names
     ]}))

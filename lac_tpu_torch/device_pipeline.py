@@ -3,7 +3,10 @@
 
 Per chunk of K full blocks:
 
-1. upload the L and R planes (int16 for 16-bit content, else int32),
+1. upload the L and R planes (int16 for 16-bit content, else int32) as
+   they are: the reference's packed transports (delta, delta24, pack24)
+   and its bucket ladder have no counterpart, because on an H100 the
+   host packing cost more than the copy it saved (PERF.md §6),
 2. analyze on the device: M/S, the per-block stereo proxy decision
    (lac/encoder.cpp:126-197), the 3 x 256-sample probe slices and exact
    autocorrelation lags of every plane,
@@ -206,6 +209,7 @@ class _ChunkJob:
         with _dbg.phase("plane_upload", self.device):
             lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
             rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
+        with _dbg.phase("analyze", self.device):
             self.dev = analyze(lmat, rmat, pipe.kind)
         self.copies = {k: HostCopy(self.dev[k]) for k in ("cm", "un", "lags", "plags") if k in self.dev}
 

@@ -21,7 +21,8 @@ import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / name for name in ("kcost.cu", "row_scan.cu", "k_after.cu", "restore.cu"))
+SOURCES = tuple(_PKG / "csrc" / name
+                for name in ("kcost.cu", "row_scan.cu", "k_after.cu", "restore.cu", "rice_scan.cu"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,6 +40,7 @@ _ENTRIES = {
     "lac_suffix_min_i32": ("p", "i", "i", "p"),
     "lac_k_after_stateful": ("p", "i", "i", "p"),
     "lac_recurrence_restore": ("p", "p", "p", "p", "p", "p", "i", "i", "p", "p"),
+    "lac_rice_scan_tokenize": ("p", "i", "i", "p", "p", "i", "p", "p"),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
-"""The port's seven hand-written Hopper kernels, each beside its plain
+"""The port's eight hand-written Hopper kernels, each beside its plain
 PyTorch version: the planner's six (lac_tpu/ops/pallas_kernels.py,
-lac_tpu/ops/pallas_adapt.py) and the device decode backend's FIR/LPC
-restore (the ``lax.scan`` of lac_tpu/ops/predictors.py:243).
+lac_tpu/ops/pallas_adapt.py), the device decode backend's FIR/LPC
+restore (the ``lax.scan`` of lac_tpu/ops/predictors.py:243) and the
+bit-reader experiment's static-Rice scan tokenizer (the ``lax.scan`` of
+lac_tpu/ops/device_reader.py:122).
 
 Codes travel as an ``int32`` view of the u32 bit pattern; sums wrap in
 u32 exactly as on the TPU (every sum on the planner's path is <= 2^30).
@@ -21,7 +23,7 @@ import threading
 import torch
 
 from ..format.constants import INT32_MAX, INT32_MIN
-from ._backend import U32_MASK, cummax, cummin_reverse, u32_from_bits
+from ._backend import U32_MASK, bit_width, cummax, cummin_reverse, u32_from_bits
 
 launches = {
     "k_cost_sums": 0,
@@ -31,6 +33,7 @@ launches = {
     "suffix_min_i32": 0,
     "k_after_stateful_fused": 0,
     "recurrence_restore": 0,
+    "tokenize_static_rice_scan": 0,
 }
 
 
@@ -342,3 +345,108 @@ def recurrence_restore(res, coeffs, order, shift, min_pred_n, valid_len=None):
             min_pred_n.data_ptr(), valid_len.data_ptr(), lanes, n, out.data_ptr(), ok.data_ptr())
     _count("recurrence_restore", res.device)
     return out, ok
+
+
+# ---------------------------------------------------------------- kernel 8
+# csrc/rice_scan.cu; replaces the lax.scan of device_reader.tokenize_static_rice_scan
+# (lac_tpu/ops/device_reader.py:122, the scan at :183), XLA code that eager torch
+# would run as one launch per token. u64 values are held in int64 (same bits);
+# every shift is guarded, as XLA gives 0 for a u64 shift by 64 or more.
+
+_I64_MIN = -(1 << 63)
+
+
+def _ult(a, b):
+    """Unsigned a < b of u64 bit patterns held in int64."""
+    return (a ^ _I64_MIN) < (b ^ _I64_MIN)
+
+
+def _umin(a, b):
+    return torch.where(_ult(a, b), a, b)
+
+
+def _shl64(x, s):
+    """u64 ``x << s``; 0 for s >= 64 (s a u64 bit pattern)."""
+    return torch.where(_ult(s, torch.full_like(s, 64)), x << s.clamp(0, 63), 0)
+
+
+def _shr64(x, s):
+    """Logical u64 ``x >> s``; 0 for s >= 64 (``>>`` on int64 is arithmetic:
+    the mask clears the sign's copies)."""
+    sc = s.clamp(0, 63)
+    mask = torch.where(sc == 0, -1, ~(torch.full_like(sc, -1) << (64 - sc.clamp(min=1))))
+    return torch.where(_ult(s, torch.full_like(s, 64)), (x >> sc) & mask, 0)
+
+
+def _clz64(x):
+    """Leading zeros of a u64 (64 for 0), from the bit widths of its halves as
+    the JAX step's ``clz64`` takes them (device_reader.py:146-158)."""
+    hi, lo = _shr64(x, torch.full_like(x, 32)), x & U32_MASK
+    return torch.where(hi != 0, 32 - bit_width(hi), 64 - bit_width(lo)).to(torch.int64)
+
+
+def _rice_scan_operands(payload, k, nbits, max_tokens):
+    if payload.dtype != torch.uint8 or payload.dim() != 2 or payload.shape[1] < 1:
+        raise TypeError(f"tokenize_static_rice_scan: want a (lanes, >= 1) uint8 payload, got {payload.dtype} "
+                        f"{tuple(payload.shape)}")
+    lanes = payload.shape[0]
+    for name, v in (("k", k), ("nbits", nbits)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (lanes,) or v.device != payload.device:
+            raise ValueError(f"tokenize_static_rice_scan: want {name} ({lanes},) int32 on {payload.device}, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    if max_tokens < 0:
+        raise ValueError(f"tokenize_static_rice_scan: max_tokens must be >= 0, got {max_tokens}")
+
+
+def tokenize_static_rice_scan_plain(payload, k, nbits, max_tokens):
+    """Kernel 8's plain version: the JAX step function (device_reader.py:164-180)
+    in a loop over tokens, vectorized over lanes."""
+    _rice_scan_operands(payload, k, nbits, max_tokens)
+    lanes, nby = payload.shape
+    dev = payload.device
+    pj = payload.to(torch.int64)
+    kk = k.to(torch.int64)  # sign-extended: numpy's int32 -> u64
+    lim = torch.full((lanes,), max(nby - 8, 0), dtype=torch.int64, device=dev)
+    three = torch.full((lanes,), 3, dtype=torch.int64, device=dev)
+    window = torch.arange(8, device=dev)
+    res = torch.empty((lanes, max_tokens), dtype=torch.int32, device=dev)
+    starts = torch.empty((lanes, max_tokens), dtype=torch.int64, device=dev)
+    pos = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    for t in range(max_tokens):
+        byteidx = _umin(_shr64(pos, three), lim)
+        got = pj.gather(1, torch.clamp(byteidx[:, None] + window, max=nby - 1))  # JAX clamps the gather
+        w = torch.zeros_like(pos)
+        for b in range(8):
+            w = (w << 8) | got[:, b]
+        w = w << _umin(pos - (byteidx << 3), torch.full_like(pos, 63))
+        q = _clz64(~w)
+        rem = torch.where(kk != 0, _shr64(_shl64(w, q + 1), 64 - kk), 0)
+        u = (_shl64(q, kk) | rem) & U32_MASK
+        r = (u >> 1) ^ torch.where((u & 1) != 0, U32_MASK, 0)
+        res[:, t] = (((r + (1 << 31)) & U32_MASK) - (1 << 31)).to(torch.int32)
+        starts[:, t] = pos
+        pos = pos + q + 1 + kk
+    start32 = ((starts + (1 << 31)) & U32_MASK) - (1 << 31)  # astype(int32) wraps
+    return res, start32 < nbits.to(torch.int64)[:, None]
+
+
+def tokenize_static_rice_scan(payload, k, nbits, max_tokens):
+    """Parse ``max_tokens`` static-k Rice tokens from each lane, one token a
+    step: ``payload`` (lanes, NBY) uint8 (NBY >= 1), ``k`` and ``nbits``
+    (lanes,) int32. Returns (residuals (lanes, max_tokens) int32, valid
+    (lanes, max_tokens) bool: the token starts before ``nbits``), the
+    values of the JAX scan, garbage past the stream and past the 57-bit
+    cap (q + 1 + k > 57) included."""
+    _rice_scan_operands(payload, k, nbits, max_tokens)
+    if payload.device.type == "cpu":
+        return tokenize_static_rice_scan_plain(payload, k, nbits, max_tokens)
+    if payload.device.type != "cuda":
+        raise ValueError(f"tokenize_static_rice_scan: unsupported device {payload.device}")
+    lanes, nby = payload.shape
+    payload, k, nbits = payload.contiguous(), k.contiguous(), nbits.contiguous()
+    res = torch.empty((lanes, max_tokens), dtype=torch.int32, device=payload.device)
+    valid = torch.empty((lanes, max_tokens), dtype=torch.bool, device=payload.device)
+    _launch("lac_rice_scan_tokenize", payload, payload.data_ptr(), lanes, nby, k.data_ptr(), nbits.data_ptr(),
+            max_tokens, res.data_ptr(), valid.data_ptr())
+    _count("tokenize_static_rice_scan", payload.device)
+    return res, valid

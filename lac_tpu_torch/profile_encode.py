@@ -17,7 +17,10 @@ prints, beside the card's name and power limit:
 * device busy: the union of device-activity intervals over the
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
   device time and launch count of each of the six kernels, by the name
-  of its device function, and of everything else.
+  of its device function, and of everything else;
+* the plane uploads of one more encode (:class:`PlaneUploads`): bytes
+  and copy time per chunk (the planes cross raw: the port has no packed
+  transport).
 
 With ``--mesh N`` the encode spreads its chunks over a mesh of N
 entries (:mod:`.parallel.mesh`): cards 0..N-1 when that many are
@@ -110,6 +113,44 @@ def _union_us(intervals):
             total += b - end
             end = b
     return total
+
+
+class PlaneUploads:
+    """The plane uploads of a stretch of the run (``device_pipeline.upload``
+    wrapped on entry, restored on exit): the bytes and time of each upload
+    of (kc, 16384) plane rows, the card synchronized before and after it, so
+    the time is the pinned copy alone. While it is on, uploads no longer
+    overlap other chunks' device work: time no wall with it."""
+
+    def __enter__(self):
+        self.uploads = []
+        self.real = real = device_pipeline.upload
+
+        def timed(a, device):
+            if getattr(a, "ndim", 0) != 2 or a.shape[1] != device_pipeline.N:
+                return real(a, device)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = real(a, device)
+            torch.cuda.synchronize(device)
+            self.uploads.append((a.shape[0], a.nbytes, time.perf_counter() - t0))
+            return out
+
+        device_pipeline.upload = timed
+        return self
+
+    def __exit__(self, *exc):
+        device_pipeline.upload = self.real
+
+    def text(self, planes):
+        """Per chunk of ``planes`` uploads: rows, bytes and milliseconds."""
+        u = self.uploads
+        chunks = [(u[i][0], sum(b for _, b, _ in u[i : i + planes]), sum(t for *_, t in u[i : i + planes]))
+                  for i in range(0, len(u), planes)]
+        nbytes, secs = sum(c[1] for c in chunks), sum(c[2] for c in chunks)
+        return (f"{len(chunks)} chunks, {nbytes:,} bytes in {secs * 1e3:.2f} ms ({nbytes / secs / 1e9:.2f} GB/s); "
+                f"per chunk (blocks, bytes, ms): "
+                + "; ".join(f"{rows} {b:,} {t * 1e3:.3f}" for rows, b, t in chunks))
 
 
 def main(argv=None):
@@ -210,6 +251,10 @@ def main(argv=None):
         print(f"card {i}: busy {card_busy:.1f} / {span_ms:.1f} ms = {100 * card_busy / span_ms:.1f}%, "
               f"device time {card_ms:.1f} ms in {len(on)} device events, "
               f"launches of the port's kernels {cuda_kernels.card_launches.get(i, {})}")
+    with PlaneUploads() as log:
+        encode()
+    print(f"plane uploads of one encode (raw int16, L and R planes a chunk, pinned copies, the card "
+          f"synchronized around each): {log.text(2)}")
 
 
 if __name__ == "__main__":

@@ -21,7 +21,9 @@ Only the entries the port calls are bound: plan replay
 (``lac_emit_blocks_planes``, ``lac_emit_blocks``), the host planner
 (``lac_plan_blocks``), autocorrelation, the stereo estimate, the three
 decoders, the v3 tokenizer of the device decode backend and the thread
-collector.
+collector, and the experiments' twins: the batched element packer
+(``lac_pack_streams``) and the static-Rice tokenizer
+(``lac_tokenize_static_rice``).
 """
 
 import ctypes
@@ -70,6 +72,9 @@ _ENTRIES = {
     "lac_plan_blocks": (ctypes.c_int, [_i32p, _u32, _u32, _i16p, _u8p, _u32, _u32, _i8p, _i32]),
     "lac_autocorr": (ctypes.c_int, [_i32p, _u32, _u32, _u32, _i64p, _i32]),
     "lac_stereo_estimate": (None, [_i32p, _i32p, _u32, _u32, _u8p, _u8p, _i32]),
+    "lac_pack_streams_sizes": (None, [_u32p, _u8p, _u64p, _u32, _u64p]),
+    "lac_pack_streams": (None, [_u32p, _u32p, _u8p, _u64p, _u32, _u8p, _u64p, _i32]),
+    "lac_tokenize_static_rice": (ctypes.c_int, [_u8p, _u64, _u32p, _u64p, _u32, _u32, _i32p]),
 }
 
 
@@ -338,3 +343,43 @@ def decode_v2_stream(payload, block_sizes, sample_offsets, channels, stereo_mode
     if status != 0:
         raise ValueError(f"block={-status - 1}")
     return left, right
+
+
+def pack_streams(unary, field_val, field_len, elem_offsets, num_threads=0):
+    """Pack a batch of element streams (bitio/pack.py's element model) with
+    the native BitSink, a thread per stream slice; returns a list of bytes.
+
+    ``unary``/``field_val``: uint32, ``field_len``: uint8, concatenated
+    across streams; ``elem_offsets``: (S+1,) uint64 element boundaries."""
+    lib = get_native()
+    unary, field_val = _c(unary, np.uint32), _c(field_val, np.uint32)
+    field_len, elem_offsets = _c(field_len, np.uint8), _c(elem_offsets, np.uint64)
+    S = len(elem_offsets) - 1
+    sizes = np.zeros(S, dtype=np.uint64)
+    lib.lac_pack_streams_sizes(_ptr(unary, ctypes.c_uint32), _ptr(field_len, ctypes.c_uint8),
+                               _ptr(elem_offsets, ctypes.c_uint64), S, _ptr(sizes, ctypes.c_uint64))
+    out_offsets = np.zeros(S + 1, dtype=np.uint64)
+    np.cumsum(sizes, out=out_offsets[1:])
+    out = np.zeros(int(out_offsets[-1]), dtype=np.uint8)
+    lib.lac_pack_streams(_ptr(unary, ctypes.c_uint32), _ptr(field_val, ctypes.c_uint32),
+                         _ptr(field_len, ctypes.c_uint8), _ptr(elem_offsets, ctypes.c_uint64), S,
+                         _ptr(out, ctypes.c_uint8), _ptr(out_offsets, ctypes.c_uint64), num_threads)
+    raw = out.tobytes()
+    return [raw[int(out_offsets[i]) : int(out_offsets[i + 1])] for i in range(S)]
+
+
+def tokenize_static_rice(payloads, ks, nbits, count):
+    """Parse ``count`` static-k Rice tokens per lane with the product reader
+    (the twin of :mod:`..experiments.device_reader`): ``payloads`` (L, NBY)
+    uint8 -> (L, count) int32 residuals. ValueError ``lane=<i>`` on a short
+    or malformed lane."""
+    lib = get_native()
+    pay = _c(payloads, np.uint8)
+    ks, nb = _c(ks, np.uint32), _c(nbits, np.uint64)
+    L = pay.shape[0]
+    out = np.empty((L, int(count)), dtype=np.int32)
+    status = lib.lac_tokenize_static_rice(_ptr(pay, ctypes.c_uint8), pay.shape[1], _ptr(ks, ctypes.c_uint32),
+                                          _ptr(nb, ctypes.c_uint64), L, int(count), _ptr(out, ctypes.c_int32))
+    if status != 0:
+        raise ValueError(f"lane={-status - 1}")
+    return out

@@ -1,7 +1,8 @@
 """The port's numpy packer, the planner's cost fields and the timing hooks.
 
 ``lac_tpu_torch.bitio.pack.pack_stream`` against ``lac_tpu.bitio`` on
-random fields and against ``lac_tpu``'s serial ``BitWriter``; the cost
+random fields and against ``lac_tpu``'s serial ``BitWriter``, whose Rice
+codes the port's ``BitReader`` reads back; the cost
 fields of the port's planner (``encoder._mode_cost_fields``,
 ``encoder._head_and_row_costs``) against ``lac_tpu.ops.costs``, the
 readable cost spec, and against the scalar spec of
@@ -24,7 +25,7 @@ from lac_tpu.bitio import pack as ref_pack  # noqa: E402
 from lac_tpu.bitio.writer import BitWriter as RefBitWriter  # noqa: E402
 from lac_tpu.ops import costs as ref_costs  # noqa: E402
 from lac_tpu_torch import encoder  # noqa: E402
-from lac_tpu_torch.bitio import pack  # noqa: E402
+from lac_tpu_torch.bitio import BitReader, pack  # noqa: E402
 from lac_tpu_torch.format import constants as C  # noqa: E402
 from lac_tpu_torch.format.zigzag import zigzag_encode  # noqa: E402
 from lac_tpu_torch.ops import adapt, runs  # noqa: E402
@@ -74,6 +75,32 @@ def test_pack_stream_matches_lac_tpu_and_the_writer(seed, count):
 def test_pack_stream_empty():
     assert pack.pack_stream([], [], []) == b""
     assert pack.pack_stream([0, 0], [0, 0], [0, 0]) == b""
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 15, 28, 31])
+def test_bit_reader_reads_lac_tpus_rice_codes(k):
+    """Signed Rice codes, a 40-bit field and whole bytes written by
+    ``lac_tpu``'s serial ``BitWriter`` read back by the port's ``BitReader``
+    (cases of tests/test_rice_tokens.py)."""
+    vals = [0, 1, -1, 5, -5, 1000, -1000, 123456, -654321, C.INT32_MAX, C.INT32_MIN]
+    if k < 28:
+        vals = vals[:-2]
+    w = RefBitWriter()
+    for v in vals:
+        u = zigzag(v)
+        w.write_unary_ones(u >> k)
+        w.write_bit(0)
+        if k:
+            w.write_bits(u & ((1 << k) - 1), k)
+    w.write_bits(0xDEADBEEFCAFE, 40)  # > 32 bits: the value's low 32 bits, zero-extended
+    w.write_bytes(b"\x01\x02")
+    w.flush_to_byte()
+    r = BitReader(w.getvalue())
+    for v in vals:
+        q = r.read_unary_ones(1 << 31)  # the ones and the stop bit
+        u = (q << k) | (r.read_bits(k) if k else 0)
+        assert (u >> 1) ^ -(u & 1) == v
+    assert r.read_bits(8) == 0 and r.read_bits(32) == 0xBEEFCAFE and r.read_bits(16) == 0x0102
 
 
 # ------------------------------------------------------------------ the planner's cost fields

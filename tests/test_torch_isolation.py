@@ -25,7 +25,8 @@ PORT_MODULES = [
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT_FILES
 ]
-assert {"lac_tpu_torch.stream", "lac_tpu_torch.batch", "lac_tpu_torch.pool"} <= set(PORT_MODULES)
+assert {"lac_tpu_torch.stream", "lac_tpu_torch.batch", "lac_tpu_torch.pool", "lac_tpu_torch.experiments",
+        "lac_tpu_torch.experiments.device_pack", "lac_tpu_torch.experiments.device_reader"} <= set(PORT_MODULES)
 CONSTANT_NAMES = sorted(n for n in vars(ref_constants) if not n.startswith("_"))
 
 

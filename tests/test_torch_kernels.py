@@ -565,6 +565,8 @@ def test_cpu_tensors_never_count_a_launch():
     K.prefix_max_i32(u)
     K.suffix_min_i32(u)
     K.k_after_stateful_fused(_t(_codes(8, 2048, 7).view(np.int32)))
+    K.tokenize_static_rice_scan(_t(_codes(8, 64, 7).view(np.uint8)), torch.zeros(8, dtype=torch.int32),
+                                torch.zeros(8, dtype=torch.int32), 5)
     assert K.launches == dict.fromkeys(K.launches, 0)
 
 
@@ -577,6 +579,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.k_cost_sums(torch.zeros((4, 8), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         K.k_after_stateful_fused(torch.zeros((4, 2048), dtype=torch.int32, device="meta"))
+    meta = {"dtype": torch.int32, "device": "meta"}
+    with pytest.raises(ValueError):
+        K.tokenize_static_rice_scan(torch.zeros((4, 8), dtype=torch.uint8, device="meta"), torch.zeros(4, **meta),
+                                    torch.zeros(4, **meta), 3)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
@@ -586,3 +592,65 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_cuda_lib, "BUILD_DIR", _cuda_lib.BUILD_DIR / "_absent_for_test")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda_lib.build_library()
+
+
+# ---------------------------------------------------------------- kernel 8
+
+
+def _rice_scan_model(payload, k, nbits, T):
+    """csrc/rice_scan.cu's thread, one lane at a time, in Python integers
+    taken modulo 2^64 (the JAX step function of device_reader.py:164-180)."""
+    M64 = (1 << 64) - 1
+    lanes, nby = payload.shape
+    res = np.zeros((lanes, T), np.int32)
+    valid = np.zeros((lanes, T), bool)
+
+    def shl(x, s):
+        return (x << s) & M64 if s < 64 else 0
+
+    def shr(x, s):
+        return x >> s if s < 64 else 0
+
+    for li in range(lanes):
+        row = [int(b) for b in payload[li]]
+        kk = int(k[li]) & M64  # numpy's int32 -> u64: sign-extended
+        pos = 0
+        for t in range(T):
+            byteidx = min(pos >> 3, max(nby - 8, 0))
+            w = 0
+            for b in range(8):
+                w = (w << 8) | row[min(byteidx + b, nby - 1)]
+            w = shl(w, min(pos - (byteidx << 3), 63))
+            nw = ~w & M64
+            q = 64 - nw.bit_length()
+            rem = shr(shl(w, q + 1), (64 - kk) & M64) if kk else 0
+            u = (shl(q, kk) | rem) & 0xFFFFFFFF
+            r = (u >> 1) ^ (0xFFFFFFFF if u & 1 else 0)
+            res[li, t] = r - (1 << 32) if r >> 31 else r
+            start = pos & 0xFFFFFFFF
+            valid[li, t] = (start - (1 << 32) if start >> 31 else start) < int(nbits[li])
+            pos = (pos + q + 1 + kk) & M64
+    return res, valid
+
+
+def _rice_scan_cases():
+    from lac_tpu_torch.experiments import bench_device_reader
+
+    cases = [(label, pay, ks, nb, T) for label, pay, ks, nb, T in bench_device_reader.adversarial_batches()]
+    rng = np.random.RandomState(12)
+    ks, vals = bench_device_reader.make_lanes(rng, 4, 96)
+    pay, nb = bench_device_reader.pack_lanes(vals, ks, torch.device("cpu"))
+    cases.append(("real lanes (4, 96), and 24 tokens past them", pay.numpy(), ks, nb.numpy(), 120))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_tokenize_static_rice_scan_plain(case):
+    """Kernel 8's plain version against a scalar model of its thread on hard
+    lanes (k = 0, 15, 31 and -1, the 57-bit cap, q = 64, NBY < 8, nbits = 0)
+    and real ones, every output element."""
+    label, pay, ks, nb, T = _rice_scan_cases()[case]
+    res, valid = K.tokenize_static_rice_scan_plain(_t(pay), _t(ks), _t(nb), T)
+    want_res, want_valid = _rice_scan_model(pay, ks, nb, T)
+    np.testing.assert_array_equal(res.numpy(), want_res, err_msg=label)
+    np.testing.assert_array_equal(valid.numpy(), want_valid, err_msg=label)
