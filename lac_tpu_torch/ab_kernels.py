@@ -1,7 +1,8 @@
 """Time the port's kernels against other sources of them on one card, in turns.
 
     python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU]
-        [--k-after OTHER_K_AFTER_CU] [--restore OTHER_RESTORE_CU ...] [--sass DIR]
+        [--k-after OTHER_K_AFTER_CU] [--restore OTHER_RESTORE_CU ...] [--rice-scan OTHER_RICE_SCAN_CU]
+        [--sass DIR]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.
 Each ``OTHER_*`` is another version of that source with the same C
@@ -49,6 +50,17 @@ decode of that file with each source's kernel 7 in turns. This tree's
 source is also built once per template (``-DLAC_RESTORE_ONE_TEMPLATE``) for
 a SASS census: the instructions a sample on the fast way and on the careful
 way.
+
+``--rice-scan`` (kernel 8): the other source first in the turns (other,
+this, this, other); at the reader's (64, 4096) and (256, 16384), on rows
+longer than the 32 KB the kernel stages at once, and on the hard and the
+sync-hostile lanes of ``bench_device_reader``, with the cycles a token of
+one lane takes at the 1.98 GHz boost clock. This tree's source is also
+built with fixed segment widths and other warm-ups (``RICE_SCAN_VARIANTS``)
+and once with ``-DLAC_RICE_SCAN_DEBUG``, whose fixpoint rounds a chunk and
+thread 0's cycles by phase (slowest lane and mean) are printed per input
+(that build is checked, not timed). The other source must have the same C
+entry, as the parent's does.
 """
 
 import argparse
@@ -483,12 +495,107 @@ def ab_restore(chip_smoke, others, out_dir, rng, sass_dir):
                                                      for side, ms in best.items()))
 
 
+# this tree's kernel 8 built with fixed segment widths (bits a thread's segment; by default a lane's head
+# over the block) and other warm-ups (bits a speculative parse runs before its segment)
+RICE_SCAN_VARIANTS = (("-DLAC_RICE_SCAN_W=128",), ("-DLAC_RICE_SCAN_W=256",), ("-DLAC_RICE_SCAN_WARM=0",),
+                      ("-DLAC_RICE_SCAN_WARM=256",))
+
+
+def _rice_scan_entry(path, debug=False):
+    """One rice_scan library's kernel 8 as a function of (payload, k, nbits,
+    tokens); with ``debug``, also (lanes, 9) int64 per lane of (chunks,
+    fixpoint rounds in all, the most in one chunk, thread 0's cycles in
+    set-up, speculative pass, rounds, scan, write pass, tail) from a
+    -DLAC_RICE_SCAN_DEBUG build."""
+    lib = ctypes.CDLL(str(path))
+    fn = _bind(lib, "lac_rice_scan_tokenize", "piippipp")
+
+    def run(t):
+        payload, k, nbits, tokens = t
+        res = torch.empty((payload.shape[0], tokens), dtype=torch.int32, device=payload.device)
+        valid = torch.empty((payload.shape[0], tokens), dtype=torch.bool, device=payload.device)
+        fn(payload, payload.data_ptr(), payload.shape[0], payload.shape[1], k.data_ptr(), nbits.data_ptr(), tokens,
+           res.data_ptr(), valid.data_ptr())
+        return res, valid
+
+    if not debug:
+        return run
+    set_rounds = lib.lac_rice_scan_debug_rounds
+    set_rounds.argtypes, set_rounds.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+
+    def rounds(t):
+        out = torch.full((t[0].shape[0], 9), -2, dtype=torch.int64, device=t[0].device)
+        err = set_rounds(out.data_ptr(), t[0].device.index)
+        got = run(t)
+        torch.cuda.synchronize()
+        set_rounds(None, t[0].device.index)
+        if err:
+            raise RuntimeError(f"lac_rice_scan_debug_rounds: CUDA error {err}")
+        return got, out.cpu().numpy()
+
+    return run, rounds
+
+
+def rice_scan_inputs():
+    """Kernel 8's inputs, label -> (payload, k, nbits, tokens) on the card: the
+    reader's two shapes, rows over one staged region, the hard and the
+    sync-hostile batches."""
+    from .experiments import bench_device_reader as bdr
+
+    dev = torch.device("cuda")
+    inputs = {}
+    for label, (ks, vals) in (("(64, 4096)", bdr.make_lanes(np.random.RandomState(11), 64, 4096)),
+                              ("(256, 16384)", bdr.make_lanes(np.random.RandomState(11), 256, 16384)),
+                              ("rows over 32 KB (4, 13000)", bdr.long_lanes(np.random.RandomState(13)))):
+        payload, nbits = bdr.pack_lanes(vals, ks, dev)
+        inputs[label] = (payload, torch.from_numpy(ks).to(dev), nbits, vals.shape[1])
+    for label, pay, ks, nb, tokens in bdr.adversarial_batches() + bdr.sync_hostile_batches():
+        inputs[label] = (*(torch.from_numpy(a).to(dev) for a in (pay, ks, nb)), tokens)
+    return inputs
+
+
+def ab_rice_scan(chip_smoke, other, out_dir, rng, sass_dir):
+    this = CSRC / "rice_scan.cu"
+    builds = {"other": (other, ()), "this": (this, ())}
+    builds.update({f"this, {' '.join(d)}": (this, d) for d in RICE_SCAN_VARIANTS})
+    builds["this, rounds"] = (this, ("-DLAC_RICE_SCAN_DEBUG",))
+    libs = _build_all("rice_scan", builds, out_dir, sass_dir)
+    _, rounds = _rice_scan_entry(libs.pop("this, rounds"), debug=True)
+    sides = {side: _rice_scan_entry(lib) for side, lib in libs.items()}
+    clock = chip_smoke.SM_CLOCK_HZ
+    for label, t in rice_scan_inputs().items():
+        payload, k, nbits, tokens = t
+        want = K.tokenize_static_rice_scan_plain(*t)
+        got, per_lane = rounds(t)
+        chip_smoke.check(_equal(got, want), f"{label}: the rounds build differs from the plain version")
+        fast = per_lane[per_lane[:, 0] >= 0]
+        most = fast[:, 2].max() if len(fast) else 0
+        print(f"  {label}: {len(fast)} fast lanes of {len(per_lane)}, chunks {int(fast[:, 0].sum())}, fixpoint "
+              f"rounds a chunk: mean {fast[:, 1].sum() / max(fast[:, 0].sum(), 1):.3f}, most {int(most)}; "
+              f"lanes by their most: {dict(zip(*(v.tolist() for v in np.unique(fast[:, 2], return_counts=True))))}")
+        if len(fast):
+            cycles = fast[:, 3:]
+            slow = cycles[cycles.sum(axis=1).argmax()]
+            names = ("set-up", "speculative", "rounds", "scan", "write", "tail")
+            print("    thread 0's cycles by phase (the rounds build), slowest lane / mean: " + ", ".join(
+                f"{n} {int(a)} / {b:.0f}" for n, a, b in zip(names, slow, cycles.mean(axis=0)))
+                  + f"; total {int(slow.sum())} / {cycles.sum(axis=1).mean():.0f}")
+        lanes = payload.shape[0]
+        bound = chip_smoke.bound(chip_smoke.SCAN, (payload, k, nbits), want,
+                                 ops=chip_smoke.OPS_PER_ELEMENT[chip_smoke.SCAN] * lanes * tokens)[0]
+        best = _turns(chip_smoke, f"{label} ({lanes} lanes, {tokens} tokens, {payload.shape[1]} B rows)", t, sides,
+                      want, bound)
+        print("    cycles per token of a lane: " + ", ".join(f"{side} {ms * 1e-3 * clock / tokens:.1f}"
+                                                          for side, ms in best.items()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kcost", type=pathlib.Path, help="the other kcost.cu")
     ap.add_argument("--row-scan", type=pathlib.Path, help="the other row_scan.cu")
     ap.add_argument("--k-after", type=pathlib.Path, help="the other k_after.cu")
     ap.add_argument("--restore", type=pathlib.Path, nargs="+", help="other restore.cu sources")
+    ap.add_argument("--rice-scan", type=pathlib.Path, help="the other rice_scan.cu")
     ap.add_argument("--sass", type=pathlib.Path, help="write each library's SASS into this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -508,6 +615,8 @@ def main(argv=None):
         ab_k_after(chip_smoke, args.k_after.resolve(), out_dir, rng, args.sass)
     if args.restore:
         ab_restore(chip_smoke, [src.resolve() for src in args.restore], out_dir, rng, args.sass)
+    if args.rice_scan:
+        ab_rice_scan(chip_smoke, args.rice_scan.resolve(), out_dir, rng, args.sass)
 
 
 if __name__ == "__main__":

@@ -38,6 +38,13 @@ def make_lanes(rng, L, T):
     return ks, vals.reshape(L, T)
 
 
+def long_lanes(rng, L=4, T=13000):
+    """(ks, values) as make_lanes gives them, at k = 20, 22, 24, 26: rows of
+    35-45 KB at T = 13000, longer than the 32 KB kernel 8 stages at once."""
+    ks = np.asarray([20 + 2 * (i % 4) for i in range(L)], np.int32)
+    return ks, np.stack([(rng.standard_normal(T) * (1 << int(k)) * 0.6).astype(np.int32) for k in ks])
+
+
 def pack_lanes(vals, ks, device):
     """Static-k Rice payloads of ``vals`` packed on ``device``: (payload
     (L, NBY) uint8, nbits (L,) int32), the words' bytes big-endian."""
@@ -108,6 +115,58 @@ def adversarial_batches(seed=8):
         short[1] = 0
         batches.append((f"rows of {nby} bytes", short, np.asarray([0, 3, 15, 1, 0, 7], np.int32),
                         np.asarray([0, 5, 8 * nby, 3, 8 * nby + 9, 11], np.int32), 10))
+    return batches
+
+
+def sync_hostile_batches(seed=9):
+    """Lanes that slow or defeat a segmented parse (kernel 8 starts a parse
+    near every segment's first bit and relies on it meeting the true parse):
+    the same (label, payload, k, nbits, tokens) tuples as adversarial_batches().
+
+    Batch 1, rows zero-padded to the longest: interior zero runs (runs of the
+    value 0, 1 + k zero bits a token, where parses k + 1 bits apart never
+    meet) at k = 1, 3 and 15; two lanes far shorter than the longest (their
+    rows end in trailing zero bytes); unary runs of 20-56 bits across
+    segment bounds at k = 0 and 5; a periodic lane whose two phases never
+    meet (k = 2, the bits "10" repeated: parses at 0 and 2 mod 4 both hold,
+    and a prefix token of 6 bits puts the true parse at 2 mod 4); a lane of
+    k = 64, above the fast path's limit. Batch 2, rows without zero bytes
+    at the end (the last bit 1 and 0: from bit 8 * NBY - 1 on every token is
+    the same), more tokens than they hold, nbits past the row (so the tail's
+    token starts decide valid)."""
+    rng = np.random.RandomState(seed)
+
+    def real(n, k):
+        return (rng.standard_normal(n) * (1 << k) * 0.6).astype(np.int32)
+
+    def zz_inv(u):
+        return (u >> 1) ^ -(u & 1)
+
+    lanes = []  # (values, k)
+    for k, zeros in ((1, 1200), (3, 600), (15, 150)):
+        lanes.append((np.concatenate([real(200, k), np.zeros(zeros, np.int32), real(200, k)]), k))
+    lanes += [(real(20, 4), 4), (real(30, 7), 7)]
+    for k in (0, 5):
+        vals = []
+        for i in range(40):  # a few short tokens, then q = 20..56 - k (q + 1 + k <= 57: under the cap)
+            q = 20 + (7 * i) % (37 - k)
+            vals += list(real(1 + i % 5, max(k, 1))) + [zz_inv((q << k) | int(rng.randint(0, 1 << k)))]
+        lanes.append((np.asarray(vals, np.int32), k))
+    # zigzag(3) = 6 = q 1, rem 2: "1010"; the prefix -7 (u 13 = q 3, rem 1) is 6 bits
+    lanes.append((np.asarray([-7] + [3] * 600, np.int32), 2))
+    enc = [(*encode_static_rice_np(v, k), k, len(v)) for v, k in lanes]
+    enc.append((rng.randint(0, 256, 200).astype(np.uint8), 1600, 64, 0))
+    nby = max(len(p) for p, _, _, _ in enc) + 8
+    pay = np.zeros((len(enc), nby), np.uint8)
+    for i, (p, _, _, _) in enumerate(enc):
+        pay[i, : len(p)] = p
+    tokens = max(n for _, _, _, n in enc) + 24
+    batches = [("sync-hostile lanes", pay, np.asarray([k for _, _, k, _ in enc], np.int32),
+                np.asarray([nb for _, nb, _, _ in enc], np.int32), tokens)]
+    ends = rng.randint(1, 256, (4, 300)).astype(np.uint8)
+    ends[:, -1] = [0x01, 0x81, 0x02, 0xFE]  # last bit 1, 1, 0, 0
+    batches.append(("rows whose last byte is set", ends, np.asarray([0, 3, 0, 9], np.int32),
+                    8 * 300 + np.asarray([37, 300, 0, 999], np.int32), 1600))
     return batches
 
 

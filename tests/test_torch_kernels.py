@@ -10,6 +10,9 @@ only. The CUDA kernels themselves are held against the same plain
 versions on the card by chip_smoke.py.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -21,6 +24,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from lac_tpu.ops import adapt as ref_adapt  # noqa: E402
+from lac_tpu.ops import device_reader as ref_reader  # noqa: E402
 from lac_tpu.ops import pallas_adapt as pa  # noqa: E402
 from lac_tpu.ops import pallas_kernels as pk  # noqa: E402
 from lac_tpu_torch.ops import _cuda_lib  # noqa: E402
@@ -598,8 +602,9 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 
 def _rice_scan_model(payload, k, nbits, T):
-    """csrc/rice_scan.cu's thread, one lane at a time, in Python integers
-    taken modulo 2^64 (the JAX step function of device_reader.py:164-180)."""
+    """csrc/rice_scan.cu's serial lane (its careful lanes), one lane at a time,
+    in Python integers taken modulo 2^64 (the JAX step function of
+    device_reader.py:164-180)."""
     M64 = (1 << 64) - 1
     lanes, nby = payload.shape
     res = np.zeros((lanes, T), np.int32)
@@ -654,3 +659,239 @@ def test_tokenize_static_rice_scan_plain(case):
     want_res, want_valid = _rice_scan_model(pay, ks, nb, T)
     np.testing.assert_array_equal(res.numpy(), want_res, err_msg=label)
     np.testing.assert_array_equal(valid.numpy(), want_valid, err_msg=label)
+
+
+def _kernel8_design():
+    """csrc/rice_scan.cu's build-time constants, read from the source so the
+    model below runs at the kernel's own."""
+    src = (pathlib.Path(K.__file__).resolve().parent.parent / "csrc" / "rice_scan.cu").read_text()
+
+    def num(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    return {"threads": num(r"kThreads = (\d+);"), "W": num(r"#define LAC_RICE_SCAN_W (\d+)"),
+            "warm": num(r"#define LAC_RICE_SCAN_WARM (\d+)"), "min_seg": num(r"kMinSegBits = (\d+);"),
+            "region": num(r"kRegion = (\d+);"), "halo": num(r"kHalo = (\d+);"), "window": num(r"kWindow = (\d+);"),
+            "rec": num(r"kRec = (\d+);"), "max_k": num(r"kMaxFastK = (\d+);")}
+
+
+def _rice_scan_segmented_model(payload, k, nbits, T, threads, W, region, window, warm=0, rec=4, halo=16, max_k=63,
+                               min_seg=64):
+    """csrc/rice_scan.cu's block, one lane at a time: the row staged region by
+    region, the speculative pass (each from ``warm`` bits before its segment,
+    not counted), the fixpoint rounds (every thread reads the last round's
+    exits), the scan of counts, the write pass into windows of
+    ``window`` tokens from each chunk's first token on (each token written
+    once, a window stored only once all its tokens are staged; the head's
+    valid flags from the first start not below nbits), the closed-form
+    tail, and the serial loop on careful lanes.
+    W = 0 takes the kernel's own segment width: a region's head over the
+    block (one chunk), at least ``min_seg`` bits, whole words. Returns (res,
+    valid, rounds): rounds[lane] is the list of fixpoint rounds of each
+    chunk, None for a careful lane."""
+    M64 = (1 << 64) - 1
+    lanes, nby = payload.shape
+    res = np.zeros((lanes, T), np.int32)
+    valid = np.zeros((lanes, T), bool)
+    rounds = []
+
+    def unzigzag(u):
+        r = (u >> 1) ^ (0xFFFFFFFF if u & 1 else 0)
+        return r - (1 << 32) if r >> 31 else r
+
+    def i32(x):
+        x &= 0xFFFFFFFF
+        return x - (1 << 32) if x >> 31 else x
+
+    for li in range(lanes):
+        kk, nb = int(k[li]), int(nbits[li])
+        if kk < 0 or kk > max_k or nby < 8:
+            r, v = _rice_scan_model(payload[li : li + 1], k[li : li + 1], nbits[li : li + 1], T)
+            res[li], valid[li] = r[0], v[0]
+            rounds.append(None)
+            continue
+        row = bytes(payload[li])
+        nz = np.flatnonzero(payload[li])
+        zb = int(nz[-1]) + 1 if len(nz) else 0
+        if zb < nby:
+            ts, stride, tail_res = 8 * zb, 1 + kk, 0
+        elif row[-1] & 1:
+            ts, stride, tail_res = 8 * nby - 1, 2 + kk, unzigzag((1 << kk) & 0xFFFFFFFF)
+        else:
+            ts, stride, tail_res = 8 * nby - 1, 1 + kk, 0
+        staged = {"g0": None, "buf": b""}
+
+        def window_at(pos):
+            """Bits [pos, pos + 64) of the staged bytes (zeros past them), masked
+            to the JAX window: the read must stay inside the staged region."""
+            lb = pos - 8 * staged["g0"]
+            assert 0 <= lb < 8 * region, "a parse left its staged region"
+            v = int.from_bytes(staged["buf"][lb >> 3 : (lb >> 3) + 9], "big")
+            return (v >> (8 - (lb & 7))) & M64 & (M64 << (pos & 7))
+
+        def token(pos):
+            w = window_at(pos)
+            q = 64 - ((~w) & M64).bit_length()
+            rem = ((w << (q + 1)) & M64) >> (64 - kk) if kk and q < 63 else 0
+            return q + 1 + kk, unzigzag((((q << kk) & M64) | rem) & 0xFFFFFFFF)
+
+        def parse(pos, end, recs=None, sync=None):
+            """From pos while pos < end: (exit, count). ``recs`` keeps the
+            first ``rec`` starts {index: start}; ``sync`` = (those, count,
+            exit) of the speculative parse: landing on one of its kept
+            starts, it goes on as that parse did."""
+            n = 0
+            while pos < end:
+                if sync is not None and pos in sync[0].values():
+                    j = next(i for i, p in sync[0].items() if p == pos)
+                    return sync[2], n + sync[1] - j
+                if recs is not None and n < rec:
+                    recs[n] = pos
+                pos += token(pos)[0]
+                n += 1
+            return pos, n
+
+        lane_rounds, out = [], {}
+        entry, base, vcut = 0, 0, T
+        g0 = 0
+        while entry < ts and base < T:
+            stop = min(nby, g0 + region + halo)
+            staged["g0"], staged["buf"] = g0, row[g0:stop] + bytes(8 * region + 32)
+            rend = min(ts, 8 * (g0 + region))
+            seg = W or max(min_seg, (-(-(rend - 8 * g0) // threads) + 31) & ~31)
+            cs = 8 * g0
+            while cs < rend and base < T:
+                active = min(-(-(rend - cs) // seg), threads)  # segments that start below rend
+                sb = [min(cs + i * seg, rend) for i in range(threads)]
+                se = [min(s + seg, rend) for s in sb]
+                entries = [entry] + sb[1:]
+                for i in range(1, active):  # the first start at or after sb of a parse begun `warm` bits earlier
+                    entries[i] = max(sb[i] - warm, 8 * g0)
+                    while entries[i] < sb[i]:
+                        entries[i] += token(entries[i])[0]
+                recs = [{} for _ in range(threads)]
+                spec = [parse(entries[i], se[i], recs=recs[i]) for i in range(threads)]
+                exits, counts = [x for x, _ in spec], [c for _, c in spec]
+                n_rounds = 0
+                while True:
+                    n_rounds += 1
+                    new = [entry] + exits[:-1]  # every thread reads the last round's exits
+                    changed = False
+                    for i in range(1, active):
+                        if new[i] != entries[i]:
+                            entries[i] = new[i]
+                            x, counts[i] = parse(new[i], se[i], sync=(recs[i], spec[i][1], spec[i][0]))
+                            changed |= x != exits[i]
+                            exits[i] = x
+                    if not changed:
+                        break
+                lane_rounds.append(n_rounds)
+                assert all(entries[i] == exits[i - 1] for i in range(1, active))
+                assert not any(counts[active:])
+                firsts = list(base + np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(int))
+                total = sum(counts)
+                for w0 in range(base, min(base + total, T), window):  # the write pass, a window at a time
+                    w1, staging = min(w0 + window, T), {}
+                    for i in range(threads):
+                        if counts[i] and firsts[i] < w1 and firsts[i] + counts[i] > w0:
+                            pos = entries[i]
+                            for idx in range(firsts[i], min(firsts[i] + counts[i], w1)):
+                                length, value = token(pos)
+                                if idx >= w0:
+                                    assert idx not in staging and idx not in out
+                                    staging[idx] = value
+                                    if i32(pos) >= nb:
+                                        vcut = min(vcut, idx)
+                                pos += length
+                    assert sorted(staging) == list(range(w0, min(w1, base + total))), "a window stored part-filled"
+                    out.update({idx: (value, idx < vcut) for idx, value in staging.items()})
+                entry, base = exits[active - 1], base + total
+                cs += threads * seg
+            g0 += region
+        for idx in range(base, T):  # the tail in closed form
+            out[idx] = (tail_res, i32(entry + (idx - base) * stride) < nb)
+        assert sorted(out) == list(range(T))
+        res[li] = [out[i][0] for i in range(T)]
+        valid[li] = [out[i][1] for i in range(T)]
+        rounds.append(lane_rounds)
+    return res, valid, rounds
+
+
+def _segmented_cases():
+    from lac_tpu_torch.experiments import bench_device_reader
+
+    cases = [(label, pay, ks, nb, T) for label, pay, ks, nb, T in bench_device_reader.adversarial_batches()]
+    cases += bench_device_reader.sync_hostile_batches()
+    ks, vals = bench_device_reader.make_lanes(np.random.RandomState(12), 4, 300)
+    pay, nb = bench_device_reader.pack_lanes(vals, ks, torch.device("cpu"))
+    cases.append(("real lanes (4, 300), and 24 tokens past them", pay.numpy(), ks, nb.numpy(), 324))
+    return cases
+
+
+# (threads, W bits, region bytes, window tokens, warm-up bits): the kernel's
+# own; small blocks whose rows span many chunks, regions and windows, with a
+# warm-up; W = 1 bit, where a segment holds at most one token start, without
+SEGMENT_DESIGNS = {"kernel": None, "small": (8, 16, 64, 16, 24), "one-bit segments": (8, 1, 8, 8, 0)}
+
+
+def _segmented_run(case, design):
+    label, pay, ks, nb, T = _segmented_cases()[case]
+    if SEGMENT_DESIGNS[design] is None:
+        d = _kernel8_design()
+        args = {key: d[key] for key in ("threads", "W", "region", "window", "warm", "rec", "halo", "max_k",
+                                        "min_seg")}
+    else:
+        args = dict(zip(("threads", "W", "region", "window", "warm"), SEGMENT_DESIGNS[design]))
+    return label, pay, ks, nb, T, _rice_scan_segmented_model(pay, ks, nb, T, **args)
+
+
+@pytest.mark.parametrize("design", list(SEGMENT_DESIGNS))
+@pytest.mark.parametrize("case", range(7))
+def test_kernel_8_segmented_model_equals_the_jax_scan(case, design):
+    """The model of csrc/rice_scan.cu's segmented parse equals the JAX scan
+    (lac_tpu's tokenize_static_rice_scan on the CPU) and the plain version on
+    every output element: hard lanes, sync-hostile lanes, real lanes, at the
+    kernel's segment width and block, at small ones and at W = 1 bit."""
+    label, pay, ks, nb, T, (res, valid, _) = _segmented_run(case, design)
+    want_res, want_valid = jax.device_get(ref_reader.tokenize_static_rice_scan(jnp.asarray(pay), ks, nb, T))
+    np.testing.assert_array_equal(res, np.asarray(want_res), err_msg=label)
+    np.testing.assert_array_equal(valid, np.asarray(want_valid), err_msg=label)
+    plain = K.tokenize_static_rice_scan_plain(_t(pay), _t(ks), _t(nb), T)
+    np.testing.assert_array_equal(res, plain[0].numpy(), err_msg=label)
+    np.testing.assert_array_equal(valid, plain[1].numpy(), err_msg=label)
+
+
+def test_kernel_8_model_rounds_where_they_are_known():
+    """At the kernel's design, real and hard lanes end in one or two fixpoint
+    rounds a chunk (the speculative pass already met the true parse, or one
+    segment had not); an interior zero run (k >= 1) or the two-phase lane walks
+    one segment a round through its 2400 bits; the trailing zeros of short
+    lanes cost nothing (closed form); careful lanes (k = -1, k = 64) run the
+    serial loop."""
+    seg = _kernel8_design()["min_seg"]  # these rows are short: every lane takes the least segment width
+    for case in (0, 6):  # adversarial lanes, real lanes
+        label, _, ks, _, _, (_, _, rounds) = _segmented_run(case, "kernel")
+        for kv, r in zip(ks, rounds):
+            assert (r is None) == (kv < 0) and (r is None or max(r, default=1) <= 2), (label, kv, r)
+    label, _, ks, _, _, (_, _, rounds) = _segmented_run(4, "kernel")
+    assert list(ks) == [1, 3, 15, 4, 7, 0, 5, 2, 64]
+    for lane in (0, 1, 2, 7):  # zero runs at k = 1, 3, 15; the two-phase lane
+        # one round a segment through the run: its whole segments but the partial one at each end
+        assert max(rounds[lane]) >= 2400 // seg - 2, (label, lane, rounds[lane])
+    assert [max(rounds[lane]) for lane in (3, 4)] == [1, 1]  # short lanes
+    assert rounds[8] is None
+
+
+def test_sync_hostile_lanes_cover_what_they_claim():
+    from lac_tpu_torch.experiments import bench_device_reader
+
+    (_, pay, ks, nb, T), (_, ends, ks2, nb2, T2) = bench_device_reader.sync_hostile_batches()
+    nz = [np.flatnonzero(row) for row in pay]
+    assert [int(v[-1]) + 1 < pay.shape[1] // 4 for v in nz[3:5]] == [True, True]  # far shorter than the longest
+    for lane, k in enumerate((1, 3, 15)):  # a zero run of 2400 bits inside the stream
+        ones = np.flatnonzero(np.unpackbits(pay[lane])[: nb[lane]])
+        assert ks[lane] == k and (np.diff(ones) - 1).max() >= 2400
+    assert ks[8] > _kernel8_design()["max_k"]
+    assert list(ends[:, -1] & 1) == [1, 1, 0, 0] and (ends[:, -1] != 0).all()
+    res, valid = K.tokenize_static_rice_scan(_t(ends), _t(ks2), _t(nb2), T2)
+    assert not valid.all() and valid.any()  # tokens past the rows
