@@ -400,16 +400,25 @@ def kernel_cases(rng, dev):
     extra_t = [(lbl, up(a), tm) for lbl, a, tm in extra]
     flags_t = up(flags.astype(np.uint32).view(np.int32))
     k_after_t = up(k_after_codes(ROWS, BLOCK, rng))
+    # long rows beside the path's 16384, from their own seed (the cases above keep their data): a
+    # ragged chunk (16388), the scalar path (16390), two chunks and the carry (20480), one block
+    # alone (1, 16384), four chunks (3, 65536)
+    lrng = np.random.RandomState(16388)
+    long_rows = [(f"({rows}, {n})", adversarial_codes(rows, n, lrng))
+                 for rows, n in ((37, 16388), (37, 16390), (37, 20480), (1, 16384), (3, 65536))]
+    long_t = [(lbl, up(a), None) for lbl, a in long_rows]
+    long_max, long_min = ([(lbl, up(break_indices(a, lrng, rev)), None) for lbl, a in long_rows]
+                          for rev in (False, True))
     return {
         "k_cost_sums": kcost,
         "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe),
                               ("group probe (1024*11, 256)", probes_t[:gp_rows], gprobe),
-                              ("(B*11, 16384)", stack_t, None)] + extra_t,
+                              ("(B*11, 16384)", stack_t, None)] + extra_t + long_t,
         "cumsum_u32": [("probe flags (12B*11, 256)", flags_t, probe),
                        ("group probe flags (1024*11, 256)", flags_t[:gp_rows], gprobe),
-                       ("adversarial (B*11, 16384)", stack_t, None)] + extra_t,
-        "prefix_max_i32": [(lbl, up(break_indices(a, rng, False)), tm) for lbl, a, tm in scans],
-        "suffix_min_i32": [(lbl, up(break_indices(a, rng, True)), tm) for lbl, a, tm in scans],
+                       ("adversarial (B*11, 16384)", stack_t, None)] + extra_t + long_t,
+        "prefix_max_i32": [(lbl, up(break_indices(a, rng, False)), tm) for lbl, a, tm in scans] + long_max,
+        "suffix_min_i32": [(lbl, up(break_indices(a, rng, True)), tm) for lbl, a, tm in scans] + long_min,
         "k_after_stateful_fused": [(f"({ROWS}, {BLOCK})", k_after_t, full),
                                    (f"group ({g_rows}, {BLOCK})", k_after_t[:g_rows], gfull)]
         + [(f"(37, {n}), {n // 2048} tiles", up(k_after_codes(37, n, rng)), None)

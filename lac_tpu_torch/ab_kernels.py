@@ -1,6 +1,6 @@
 """Time the port's kernels against other sources of them on one card, in turns.
 
-    python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU]
+    python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU ...]
         [--k-after OTHER_K_AFTER_CU] [--restore OTHER_RESTORE_CU ...] [--rice-scan OTHER_RICE_SCAN_CU]
         [--sass DIR]
 
@@ -18,12 +18,18 @@ sources in order, then in reverse; a CUDA graph of 20 launches between
 CUDA events, as chip_smoke.py times) beside chip_smoke.py's bound, under
 the card's name and power limit.
 
-``--row-scan`` (kernels 2-5): the four scans at the probe shapes (33792,
-256) and (3072, 256), at 512, 1024 and 2048 samples a row, and at (2816,
+``--row-scan`` (kernels 2-5; the other sources first in the turns: others,
+this, this, others): the four scans at the probe shapes (33792,
+256) and (3072, 256), at 512, 1024 and 2048 samples a row, and at the long
+rows' path shapes (2816, 16384), (256, 16384), (1408, 16384) and (128,
 16384); this tree's source is also built with ``-DLAC_SCAN_SHORT_MAX=256``
-and ``=1024`` (where the warp-per-row kernel hands over to the tile
-kernel), and ``torch.cumsum`` / ``torch.cummax`` are timed in the same
-turns.
+and ``=1024`` (where the warp-per-row kernel hands over to the block
+kernel; timed at 512-2048 samples a row), ``torch.cumsum`` /
+``torch.cummax`` and a copy of the operand (``clone``: the same bytes
+moved by PyTorch's copy kernel) are timed in the same turns. At the long
+shapes kernels 4 and 5 of every source are also timed on one operand in
+the same turns (the forward operand, then the reverse one), so that a gap
+between them shows as data or direction.
 
 ``--kcost`` (kernel 1): this tree's source is also built with its
 build-time choices set otherwise (``KCOST_VARIANTS``); the row sums at the
@@ -98,7 +104,8 @@ def _build(src, out, defines=()):
             name = line.split("'")[1]
             if os.path.exists(filt):
                 name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
-            name = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(bool\)", "", name).removeprefix("void ")
+            name = name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
         elif "spill" in line:
             spill = line.split("ptxas info    :")[-1].strip()
         elif "Used" in line and "registers" in line:
@@ -230,33 +237,62 @@ def _turns(chip_smoke, label, x, sides, want, bound_ms, extra=""):
     return {name: min(v) for name, v in t.items()}
 
 
-def ab_row_scan(chip_smoke, other, out_dir, rng, sass_dir):
-    builds = {"other": (other, ()), "this": (CSRC / "row_scan.cu", ()),
-              "this, short <= 256": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=256",)),
-              "this, short <= 1024": (CSRC / "row_scan.cu", ("-DLAC_SCAN_SHORT_MAX=1024",))}
+def ab_row_scan(chip_smoke, others, out_dir, rng, sass_dir):
+    this = CSRC / "row_scan.cu"
+    names = [src.stem for src in others]  # several others are told apart by their file names
+    if len(others) == 1 or len(set(names)) < len(names) or "this" in names:
+        names = [f"other{i}" if len(others) > 1 else "other" for i in range(1, len(others) + 1)]
+    builds = {name: (src, ()) for name, src in zip(names, others)}
+    builds.update({"this": (this, ()), "this, short <= 256": (this, ("-DLAC_SCAN_SHORT_MAX=256",)),
+                   "this, short <= 1024": (this, ("-DLAC_SCAN_SHORT_MAX=1024",))})
     libs = _build_all("row_scan", builds, out_dir, sass_dir)
     entries = {side: _scan_entries(lib) for side, lib in libs.items()}
     library = {"cumsum_u32": lambda x: torch.cumsum(x, -1, dtype=torch.int32),
                "prefix_max_i32": lambda x: torch.cummax(x, -1).values}
+    group = chip_smoke.GROUP_LANES
     shapes = [(12 * LANES * 11, 256), (12 * LANES, 256), (6 * LANES * 11, 512), (3 * LANES * 11, 1024),
-              (3 * LANES * 11 // 2, 2048), (LANES * 11, BLOCK)]
+              (3 * LANES * 11 // 2, 2048), (LANES * 11, BLOCK), (LANES, BLOCK), (group * 11, BLOCK), (group, BLOCK)]
+
+    def timed_here(side, n):  # a variant is timed only where it differs from "this"
+        return "short" not in side or 256 < n <= 2048
+
     for rows, n in shapes:
         codes = chip_smoke.adversarial_codes(rows, n, rng)
+        operands = {}
         for name in entries["this"]:
             if name.endswith("_i32"):
                 x = torch.from_numpy(chip_smoke.break_indices(codes, rng, name == "suffix_min_i32")).cuda()
+                operands[name] = x
             else:
                 x = torch.from_numpy(codes).cuda()
             want = getattr(K, name + "_plain")(x)
-            sides = {side: e[name] for side, e in entries.items() if n > 256 or "short" not in side}
+            sides = {side: e[name] for side, e in entries.items() if timed_here(side, n)}
             if name in library:
                 chip_smoke.check(_equal(library[name](x), want), f"{name}: the library call differs")
                 sides["library call"] = library[name]
-            _turns(chip_smoke, f"{name} ({rows}, {n})", x, sides, want, chip_smoke.bound(name, x, want)[0])
+            for side, fn in sides.items():
+                chip_smoke.check(_equal(fn(x), want), f"{name} ({rows}, {n}): {side} differs from the plain version")
+            if n > 2048:  # the same bytes through PyTorch's copy kernel
+                sides["copy (clone)"] = torch.clone
+            _turns(chip_smoke, f"{name} ({rows}, {n})", x, sides, None, chip_smoke.bound(name, x, want)[0])
             if name == "cumsum_u32" and n == 256:  # the same launch on zeros: does the time depend on the data?
                 zeros = torch.zeros_like(x)
                 _turns(chip_smoke, f"{name} ({rows}, {n}), all zeros", zeros, sides, zeros,
                        chip_smoke.bound(name, x, want)[0])
+        if n <= 2048:
+            continue
+        # kernels 4 and 5 on one operand in the same turns: is a gap between them data or direction?
+        for label, x in (("the forward operand", operands["prefix_max_i32"]),
+                         ("the reverse operand", operands["suffix_min_i32"])):
+            sides = {}
+            for side in [k for k in entries if "short" not in k]:
+                for name in ("prefix_max_i32", "suffix_min_i32"):
+                    fn = entries[side][name]
+                    chip_smoke.check(_equal(fn(x), getattr(K, name + "_plain")(x)), f"{side} {name} differs")
+                    sides[f"{side} {name}"] = fn
+            want = K.prefix_max_i32_plain(x)
+            _turns(chip_smoke, f"kernels 4 and 5 on {label} ({rows}, {n})", x, sides, None,
+                   chip_smoke.bound("prefix_max_i32", x, want)[0])
 
 
 def ab_kcost(chip_smoke, other, out_dir, rng, sass_dir):
@@ -592,7 +628,7 @@ def ab_rice_scan(chip_smoke, other, out_dir, rng, sass_dir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kcost", type=pathlib.Path, help="the other kcost.cu")
-    ap.add_argument("--row-scan", type=pathlib.Path, help="the other row_scan.cu")
+    ap.add_argument("--row-scan", type=pathlib.Path, nargs="+", help="other row_scan.cu sources")
     ap.add_argument("--k-after", type=pathlib.Path, help="the other k_after.cu")
     ap.add_argument("--restore", type=pathlib.Path, nargs="+", help="other restore.cu sources")
     ap.add_argument("--rice-scan", type=pathlib.Path, help="the other rice_scan.cu")
@@ -608,7 +644,7 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(20261016)
     if args.row_scan:
-        ab_row_scan(chip_smoke, args.row_scan.resolve(), out_dir, rng, args.sass)
+        ab_row_scan(chip_smoke, [src.resolve() for src in args.row_scan], out_dir, rng, args.sass)
     if args.kcost:
         ab_kcost(chip_smoke, args.kcost.resolve(), out_dir, rng, args.sass)
     if args.k_after:

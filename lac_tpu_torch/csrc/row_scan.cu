@@ -35,22 +35,36 @@
 // the same kernel with one load and store per element, masked slots
 // holding the op's identity.
 //
-// Long rows: row_scan. One block owns a row and walks it tile by tile
-// (4096 elements, 16 per thread):
-//   1. coalesced load of a tile into shared memory (the ragged edge and
-//      the reverse direction are handled by the index map, masked slots
-//      hold the op's identity),
-//   2. each thread scans its contiguous run of kItems elements serially,
-//   3. warp shuffles scan the run totals, one warp scans the warp totals,
-//   4. each thread applies its exclusive prefix (carry, earlier warps,
-//      earlier lanes) to its run, and the tile is stored coalesced.
-// Shared-memory slots are padded by one word per 32 so that the serial
-// runs of step 2 hit distinct banks.
+// Long rows: row_scan_long. One block of 512 threads (16 warps) owns a row
+// and takes it in chunks of 16384 elements (one chunk on every path shape),
+// registers only:
+//   1. a lane issues the chunk's eight 128-bit loads before it uses one, so
+//      a row costs one DRAM round trip and 64 KB per block is in flight;
+//      the layout makes every load and store instruction of a warp cover 512
+//      contiguous bytes: a chunk is 64 pieces of 256 elements, warp w takes
+//      pieces w, w + 16, w + 32, w + 48, and in each piece lane l holds
+//      elements 4 l .. 4 l + 3 of both 128-element halves,
+//   2. each piece: serial scans of the lane's two runs of 4, five shuffle
+//      steps over the run totals of each half, the piece total to shared
+//      memory,
+//   3. one block barrier a chunk; every warp scans the 64 piece totals (two
+//      a lane: a serial step and five shuffle steps), which with the row's
+//      carry gives each piece its exclusive prefix,
+//   4. each lane applies its prefixes and stores with 128-bit stores; a
+//      longer row carries the chunk total into the next chunk (the totals
+//      are double-buffered by chunk, so one barrier a chunk suffices).
+// The reverse direction, the vector condition and the scalar path are
+// row_scan_warp's, and a chunk that ends inside the row masks its slots
+// with the op's identity. The 4-byte ops fit 64 registers: two blocks an
+// SM, 128 KB in flight. Not row_scan_warp's layout (8 consecutive
+// elements a lane, 16-byte loads at a 32-byte lane stride): each of its
+// instructions covers half of every sector it touches, and with the
+// operands in L2 that made this kernel up to 1.8x slower.
 //
 // Where "short" ends: LAC_SCAN_SHORT_MAX (a build-time macro so that one
 // command can time the choices against each other,
 // lac_tpu_torch/ab_kernels.py). A warp walks a 2048-element row in 8
-// steps while the tile kernel would spend a 4096-slot tile on it.
+// steps while the block kernel would spend a 16384-element chunk on it.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -93,6 +107,24 @@ __device__ __forceinline__ void store4(void* o0, void*, long long i, int32_t a, 
 __device__ __forceinline__ void store4(void* o0, void* o1, long long i, Pair a, Pair b, Pair c, Pair d) {
   *reinterpret_cast<uint4*>(static_cast<uint32_t*>(o0) + i) = make_uint4(a.hi, b.hi, c.hi, d.hi);
   *reinterpret_cast<uint4*>(static_cast<uint32_t*>(o1) + i) = make_uint4(a.lo, b.lo, c.lo, d.lo);
+}
+
+// 128-bit stores of four results at element offset i (i % 4 == 0, aligned
+// outputs) for the long-row kernel, one instruction each: nvcc splits one of
+// store4's vector stores there into four 32-bit ones (in the reverse
+// direction), as it did in row_scan_warp's unrolled loop
+__device__ __forceinline__ void stg_v4(void* p, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+__device__ __forceinline__ void stg4(void* o0, void*, long long i, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  stg_v4(static_cast<uint32_t*>(o0) + i, a, b, c, d);
+}
+__device__ __forceinline__ void stg4(void* o0, void*, long long i, int32_t a, int32_t b, int32_t c, int32_t d) {
+  stg_v4(static_cast<int32_t*>(o0) + i, a, b, c, d);
+}
+__device__ __forceinline__ void stg4(void* o0, void* o1, long long i, Pair a, Pair b, Pair c, Pair d) {
+  stg_v4(static_cast<uint32_t*>(o0) + i, a.hi, b.hi, c.hi, d.hi);
+  stg_v4(static_cast<uint32_t*>(o1) + i, a.lo, b.lo, c.lo, d.lo);
 }
 
 // Each op: value type T, raw input element type Raw, identity, combine,
@@ -141,78 +173,6 @@ struct MinI32 {
     static_cast<int32_t*>(o0)[i] = v;
   }
 };
-
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
-
-template <class Op, bool kReverse, int kItems>
-__global__ void __launch_bounds__(kThreads)
-row_scan(const void* __restrict__ in, void* o0, void* o1, long long n) {
-  using T = typename Op::T;
-  using Raw = typename Op::Raw;
-  constexpr int kTile = kThreads * kItems;
-  __shared__ T tile[kTile + kTile / 32];
-  __shared__ T warp_tot[kWarps];
-
-  const long long row_off = (long long)blockIdx.x * n;
-  const Raw* src = static_cast<const Raw*>(in) + row_off;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T carry = Op::identity();
-
-  for (long long base = 0; base < n; base += kTile) {
-    // 1. coalesced load; logical position p walks the row in scan order
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const long long p = base + i;
-      T v = Op::identity();
-      if (p < n) v = Op::load(src[kReverse ? n - 1 - p : p]);
-      tile[padded(i)] = v;
-    }
-    __syncthreads();
-
-    // 2. serial scan of this thread's run
-    const int r0 = threadIdx.x * kItems;
-    T acc = tile[padded(r0)];
-#pragma unroll
-    for (int j = 1; j < kItems; ++j) {
-      acc = Op::op(acc, tile[padded(r0 + j)]);
-      tile[padded(r0 + j)] = acc;
-    }
-
-    // 3. scan of run totals: within the warp, then across warps
-    T incl = acc;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const T y = shfl_up(incl, d);
-      if (lane >= d) incl = Op::op(y, incl);
-    }
-    const T excl_in_warp = shfl_up(incl, 1);
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      T w = lane < kWarps ? warp_tot[lane] : Op::identity();
-#pragma unroll
-      for (int d = 1; d < kWarps; d <<= 1) {
-        const T y = shfl_up(w, d);
-        if (lane >= d) w = Op::op(y, w);
-      }
-      if (lane < kWarps) warp_tot[lane] = w;
-    }
-    __syncthreads();
-
-    // 4. fix-up with the exclusive prefix, then coalesced store
-    T prefix = carry;
-    if (warp > 0) prefix = Op::op(prefix, warp_tot[warp - 1]);
-    if (lane > 0) prefix = Op::op(prefix, excl_in_warp);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) tile[padded(r0 + j)] = Op::op(prefix, tile[padded(r0 + j)]);
-    carry = Op::op(carry, warp_tot[kWarps - 1]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const long long p = base + i;
-      if (p < n) Op::store(o0, o1, row_off + (kReverse ? n - 1 - p : p), tile[padded(i)]);
-    }
-    __syncthreads();  // the next tile reuses tile[] and warp_tot[]
-  }
-}
 
 constexpr int kLaneItems = 8;                // elements a lane holds in one step
 constexpr int kWarpStep = 32 * kLaneItems;   // elements a warp scans in one step
@@ -301,6 +261,175 @@ row_scan_warp(const void* __restrict__ in, void* o0, void* o1, long long rows, l
   }
 }
 
+// Long rows: one block per row, registers only (see the header).
+constexpr int kLongWarps = 16;
+constexpr int kLongThreads = 32 * kLongWarps;
+constexpr int kHalf = 128;                        // elements a warp's 128-bit load covers: 4 a lane
+constexpr int kPiece = 2 * kHalf;                 // a piece: two halves, 8 elements a lane
+constexpr int kLongChunk = 16384;                 // elements between two barriers
+constexpr int kPieces = kLongChunk / kPiece;      // 64, two a lane in the scan of their totals
+constexpr int kLongSteps = kPieces / kLongWarps;  // pieces a warp takes in a chunk: w, w + 16, ...
+constexpr int kLongVecs = 2 * kLongSteps;         // 128-bit loads a lane issues for a chunk
+constexpr int kLongItems = 4 * kLongVecs;         // elements a lane holds
+static_assert(kPieces == 64 && kPieces % kLongWarps == 0, "pieces of a chunk");
+
+// Vector i of this lane (a step's half) starts at scan position p0 + off(i);
+// the lane's first one, p0, is chunk base + 256 w + 4 lane.
+__device__ __forceinline__ constexpr int long_off(int i) {
+  return (i >> 1) * kLongWarps * kPiece + (i & 1) * kHalf;
+}
+
+// The chunk's 128-bit loads for this lane, all issued before any value is
+// used; n % 4 == 0, so a vector lies inside the row whole or not at all.
+// kFull: the chunk lies inside the row, no load needs a guard.
+template <class Op, bool kReverse, bool kFull>
+__device__ __forceinline__ void load_chunk(const typename Op::Raw* __restrict__ src, int n, int p0,
+                                           int4 (&q)[kLongVecs]) {
+  using Raw = typename Op::Raw;
+  const Raw* at = kReverse ? src + (n - 4 - p0) : src + p0;
+#pragma unroll
+  for (int i = 0; i < kLongVecs; ++i) {
+    const int off = long_off(i);
+    q[i] = kFull || p0 + off < n ? __ldg(reinterpret_cast<const int4*>(at + (kReverse ? -off : off)))
+                                 : make_int4(0, 0, 0, 0);
+  }
+}
+
+// Scan and store one chunk of a row from scan position ``base``; its vectors
+// are in ``q`` where kVec, else each element is loaded here. ``carry`` is the
+// row's value before the chunk; ``tot`` the chunk's piece totals.
+template <class Op, bool kReverse, bool kVec, bool kFull>
+__device__ __forceinline__ void scan_chunk(const typename Op::Raw* __restrict__ src, void* o0, void* o1,
+                                           long long row_off, int n, int base, const int4 (&q)[kLongVecs],
+                                           typename Op::T (&tot)[kPieces], typename Op::T& carry) {
+  using T = typename Op::T;
+  using Raw = typename Op::Raw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // slot 4 i + k holds scan position p0 + off(i) + k; position p is element
+  // p, or n - 1 - p in the reverse direction
+  const int p0 = base + warp * kPiece + lane * 4;
+  T v[kLongItems];
+  if (kVec) {  // a vector's words reversed in the reverse direction
+#pragma unroll
+    for (int i = 0; i < kLongVecs; ++i) {
+      const int4 w = q[i];
+      const bool in_row = kFull || p0 + long_off(i) < n;
+      v[4 * i + 0] = in_row ? Op::load(static_cast<Raw>(kReverse ? w.w : w.x)) : Op::identity();
+      v[4 * i + 1] = in_row ? Op::load(static_cast<Raw>(kReverse ? w.z : w.y)) : Op::identity();
+      v[4 * i + 2] = in_row ? Op::load(static_cast<Raw>(kReverse ? w.y : w.z)) : Op::identity();
+      v[4 * i + 3] = in_row ? Op::load(static_cast<Raw>(kReverse ? w.x : w.w)) : Op::identity();
+    }
+  } else {
+    const Raw* at = kReverse ? src + (n - 1 - p0) : src + p0;
+#pragma unroll
+    for (int j = 0; j < kLongItems; ++j) {
+      const int off = long_off(j / 4) + j % 4;
+      v[j] = kFull || p0 + off < n ? Op::load(at[kReverse ? -off : off]) : Op::identity();
+    }
+  }
+
+  // 1. each piece: serial scans of the two runs, warp scans of their totals;
+  // pre0/pre1 are the lane's exclusive prefixes within the piece, lane 31
+  // writes the piece total
+  T pre0[kLongSteps], pre1[kLongSteps];
+#pragma unroll
+  for (int s = 0; s < kLongSteps; ++s) {
+    T* r = v + 8 * s;
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      r[k] = Op::op(r[k - 1], r[k]);
+      r[4 + k] = Op::op(r[3 + k], r[4 + k]);
+    }
+    T i0 = r[3], i1 = r[7];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const T y0 = shfl_up(i0, d), y1 = shfl_up(i1, d);
+      if (lane >= d) {
+        i0 = Op::op(y0, i0);
+        i1 = Op::op(y1, i1);
+      }
+    }
+    const T e0 = shfl_up(i0, 1), e1 = shfl_up(i1, 1);
+    const T first = shfl_from(i0, 31);  // the first half's total
+    pre0[s] = lane > 0 ? e0 : Op::identity();
+    pre1[s] = lane > 0 ? Op::op(first, e1) : first;
+    if (lane == 31) tot[s * kLongWarps + warp] = Op::op(first, i1);
+  }
+
+  // 2. across pieces: one barrier, then every warp scans the 64 totals, two a
+  // lane (a serial step and five shuffle steps)
+  __syncthreads();
+  const T t0 = tot[2 * lane];
+  T incl = Op::op(t0, tot[2 * lane + 1]);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = shfl_up(incl, d);
+    if (lane >= d) incl = Op::op(y, incl);
+  }
+  const T up = shfl_up(incl, 1);
+  const T even = lane > 0 ? Op::op(carry, up) : carry;  // the row before piece 2 lane
+  const T odd = Op::op(even, t0);                       // ... and before piece 2 lane + 1
+  carry = Op::op(carry, shfl_from(incl, 31));
+
+  // 3. fix-up and 128-bit stores
+#pragma unroll
+  for (int s = 0; s < kLongSteps; ++s) {
+    const int pc = s * kLongWarps + warp;  // the piece: odd or even alike in every lane of the warp
+    const T before_even = shfl_from(even, pc >> 1), before_odd = shfl_from(odd, pc >> 1);
+    const T before = pc & 1 ? before_odd : before_even;
+    const T prefix0 = Op::op(before, pre0[s]), prefix1 = Op::op(before, pre1[s]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[8 * s + k] = Op::op(k < 4 ? prefix0 : prefix1, v[8 * s + k]);
+  }
+  if (kVec) {
+    const long long at = row_off + (kReverse ? n - 4 - p0 : p0);
+#pragma unroll
+    for (int i = 0; i < kLongVecs; ++i) {
+      const int off = long_off(i);
+      const T* r = v + 4 * i;
+      if (kFull || p0 + off < n) {
+        if (kReverse) {
+          stg4(o0, o1, at - off, r[3], r[2], r[1], r[0]);
+        } else {
+          stg4(o0, o1, at + off, r[0], r[1], r[2], r[3]);
+        }
+      }
+    }
+  } else {
+    const long long at = row_off + (kReverse ? n - 1 - p0 : p0);
+#pragma unroll
+    for (int j = 0; j < kLongItems; ++j) {
+      const int off = long_off(j / 4) + j % 4;
+      if (kFull || p0 + off < n) Op::store(o0, o1, at + (kReverse ? -off : off), v[j]);
+    }
+  }
+}
+
+// Two blocks an SM (64 registers) for the 4-byte ops' vector path; the scalar
+// path's 32 element addresses take more registers, and the split sums hold
+// two values an element.
+template <class Op, bool kReverse, bool kVec>
+__global__ void __launch_bounds__(kLongThreads, sizeof(typename Op::T) == 4 && kVec ? 2 : 1)
+row_scan_long(const void* __restrict__ in, void* o0, void* o1, int n) {
+  using T = typename Op::T;
+  using Raw = typename Op::Raw;
+  __shared__ T tot[2][kPieces];  // by chunk parity: a warp reads one while the next is written
+  const long long row_off = (long long)blockIdx.x * n;
+  const Raw* src = static_cast<const Raw*>(in) + row_off;
+  const int p0 = (threadIdx.x >> 5) * kPiece + (threadIdx.x & 31) * 4;  // in a chunk
+  T carry = Op::identity();
+  int4 q[kLongVecs];
+  int base = 0, buf = 0;
+  for (; base + kLongChunk <= n; base += kLongChunk, buf ^= 1) {
+    if (kVec) load_chunk<Op, kReverse, true>(src, n, base + p0, q);
+    scan_chunk<Op, kReverse, kVec, true>(src, o0, o1, row_off, n, base, q, tot[buf], carry);
+  }
+  if (base < n) {
+    if (kVec) load_chunk<Op, kReverse, false>(src, n, base + p0, q);
+    scan_chunk<Op, kReverse, kVec, false>(src, o0, o1, row_off, n, base, q, tot[buf], carry);
+  }
+}
+
 __host__ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <class Op, bool kReverse>
@@ -309,15 +438,20 @@ int launch(const void* in, void* o0, void* o1, long long rows, long long n, void
   if (err != cudaSuccess) return (int)err;
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && aligned16(in) && aligned16(o0) && aligned16(o1);
   if (n <= LAC_SCAN_SHORT_MAX) {
     const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-    if (n % 4 == 0 && aligned16(in) && aligned16(o0) && aligned16(o1)) {
+    if (vec) {
       row_scan_warp<Op, kReverse, true><<<blocks, kThreads, 0, s>>>(in, o0, o1, rows, n);
     } else {
       row_scan_warp<Op, kReverse, false><<<blocks, kThreads, 0, s>>>(in, o0, o1, rows, n);
     }
+  } else if (n > INT_MAX - kLongChunk || rows > INT_MAX) {
+    return (int)cudaErrorInvalidValue;  // positions in a row are int, a row is a block
+  } else if (vec) {
+    row_scan_long<Op, kReverse, true><<<(unsigned)rows, kLongThreads, 0, s>>>(in, o0, o1, (int)n);
   } else {
-    row_scan<Op, kReverse, 16><<<(unsigned)rows, kThreads, 0, s>>>(in, o0, o1, n);
+    row_scan_long<Op, kReverse, false><<<(unsigned)rows, kLongThreads, 0, s>>>(in, o0, o1, (int)n);
   }
   return (int)cudaGetLastError();
 }

@@ -283,8 +283,8 @@ def test_k_after_stateful_fused_plain(n):
     np.testing.assert_array_equal(got.numpy(), _k_after_by_tiles(u))
 
 
-# ---- numpy models of the redesigned short-row scan and k-cost kernels
-# (csrc/row_scan.cu: row_scan_warp; csrc/kcost.cu: halve, warp_totals,
+# ---- numpy models of the redesigned scan and k-cost kernels
+# (csrc/row_scan.cu: row_scan_warp, row_scan_long; csrc/kcost.cu: halve, warp_totals,
 # k_cost_block_per_row, k_cost_tree). Each repeats the kernel's own
 # decomposition, lane by lane, and is held against the plain version.
 
@@ -374,6 +374,117 @@ def test_warp_scan_decomposition(name, n, reverse):
         want = want if isinstance(want, (tuple, list)) else (want,)
         for w, pw in zip(plain, want):
             np.testing.assert_array_equal(w.numpy(), np.asarray(pw))
+
+
+# csrc/row_scan.cu: row_scan_long, the long-row kernel (n > LAC_SCAN_SHORT_MAX)
+_LONG_CHUNK = 16384
+
+
+def _long_scan_model(x, combine, identity, reverse):
+    """row_scan_long on (rows, n): one block (16 warps) per row takes chunks
+    of 16384 scan positions, 64 pieces of 256; warp w takes pieces w, w + 16,
+    w + 32, w + 48, and in each piece lane l the positions 4 l .. 4 l + 3 of
+    both 128-position halves (position p is element p, or n - 1 - p in
+    reverse), as 4-word vectors where n % 4 == 0 (words reversed in
+    registers in the reverse direction) and element by element otherwise.
+    Per piece: serial scans of the two runs, five shuffle-up steps over the
+    run totals of each half, the lane's exclusive prefixes kept and the
+    piece total written; after the barrier every warp scans the 64 totals,
+    two a lane (a serial step, five shuffle steps), the row's carry in front;
+    a piece takes its prefix from lane piece // 2 (even or odd piece), and
+    the chunk total is carried into the next chunk."""
+    rows, n = x.shape
+    out = np.zeros_like(x)
+    written = np.zeros(n, np.int64)
+    carry = np.full(rows, identity, x.dtype)
+    lanes = np.arange(32)
+    vec = n % 4 == 0
+
+    def warp_scan(t):  # inclusive shuffle-up scan over the lanes (last axis)
+        for d in (1, 2, 4, 8, 16):
+            y = np.roll(t, d, axis=-1)  # shfl_up: lanes < d read their own value and ignore it
+            t = np.where(lanes >= d, combine(y, t), t)
+        return t
+
+    with np.errstate(over="ignore"):
+        for base in range(0, n, _LONG_CHUNK):
+            tot = np.full((rows, 64), identity, x.dtype)
+            parts = []
+            for w in range(16):
+                for s in range(4):
+                    pc = 16 * s + w
+                    elem = np.full((32, 8), -1, np.int64)  # which element each slot holds
+                    for lane in lanes:
+                        for h in (0, 1):
+                            p = base + 256 * pc + 128 * h + 4 * lane
+                            if vec:
+                                if p < n:
+                                    e = n - 4 - p if reverse else p
+                                    assert e >= 0 and e % 4 == 0 and e + 4 <= n  # an aligned vector inside the row
+                                    words = np.arange(e, e + 4)
+                                    elem[lane, 4 * h : 4 * h + 4] = words[::-1] if reverse else words
+                            else:
+                                for k in range(4):
+                                    if p + k < n:
+                                        elem[lane, 4 * h + k] = n - 1 - (p + k) if reverse else p + k
+                    live = elem >= 0
+                    v = np.full((rows, 32, 8), identity, x.dtype)
+                    v[:, live] = x[:, elem[live]]
+                    for k in range(1, 4):
+                        v[..., k] = combine(v[..., k - 1], v[..., k])
+                        v[..., 4 + k] = combine(v[..., 3 + k], v[..., 4 + k])
+                    i0, i1 = warp_scan(v[..., 3].copy()), warp_scan(v[..., 7].copy())
+                    first = i0[:, 31:]
+                    pre0 = np.where(lanes > 0, np.roll(i0, 1, axis=-1), identity)
+                    pre1 = np.where(lanes > 0, combine(first, np.roll(i1, 1, axis=-1)), first)
+                    tot[:, pc] = combine(first[:, 0], i1[:, 31])  # lane 31 writes the piece total
+                    parts.append((pc, elem, live, v, pre0, pre1))
+            t0 = tot[:, 0::2]
+            incl = warp_scan(combine(t0, tot[:, 1::2]))
+            even = np.where(lanes > 0, combine(carry[:, None], np.roll(incl, 1, axis=-1)), carry[:, None])
+            odd = combine(even, t0)
+            for pc, elem, live, v, pre0, pre1 in parts:
+                before = (odd if pc & 1 else even)[:, pc >> 1, None]
+                v[..., :4] = combine(combine(before, pre0)[..., None], v[..., :4])
+                v[..., 4:] = combine(combine(before, pre1)[..., None], v[..., 4:])
+                out[:, elem[live]] = v[:, live]
+                written[elem[live]] += 1
+            carry = combine(carry, incl[:, 31])
+    assert (written == 1).all()  # every element stored exactly once
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n", [2052, 4096, 6144, 16384, 16390, 20480])
+@pytest.mark.parametrize("name", sorted(_SCAN_OPS))
+def test_long_scan_decomposition(name, n, reverse):
+    """The long-row block scan's decomposition, for every op in both
+    directions, against numpy, the plain version (in the wrapper's own
+    direction) and the Pallas kernel (interpret mode, where it tiles). Rows
+    over 16384 cross a chunk (the carry); 16390 takes the scalar path."""
+    combine, identity, dtype, wrapper_reverse = _SCAN_OPS[name]
+    u = _codes(ROWS, n, 13)
+    x = u if dtype == np.uint32 else _breaks(u, reverse, 14)
+    halves = [x >> 16, x & 0xFFFF] if name == "split_cumsums_u32" else [x]
+    got = [_long_scan_model(h, combine, identity, reverse) for h in halves]
+    flip = (lambda a: np.flip(a, -1)) if reverse else (lambda a: a)
+    for g, h in zip(got, halves):
+        np.testing.assert_array_equal(g, flip(combine.accumulate(flip(h), axis=-1, dtype=dtype)))
+    if reverse != wrapper_reverse:
+        return
+    plain = getattr(K, name)(_t(x.view(np.int32)))
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    for g, w in zip(got, plain):
+        np.testing.assert_array_equal(g.view(np.int32), w.numpy())
+    if n % pk._SCAN_TC == 0:
+        kernel, outs, scratch = {"split_cumsums_u32": (pk._split_cumsum_kernel, 2, 2),
+                                 "cumsum_u32": (pk._cumsum_kernel, 1, 1),
+                                 "prefix_max_i32": (pk._prefix_max_kernel, 1, 1),
+                                 "suffix_min_i32": (pk._suffix_min_kernel, 1, 1)}[name]
+        want = _scan_call(kernel, n, outs=outs, scratch=scratch, reverse=reverse)(_i32(x.view(np.uint32)))
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for g, pw in zip(got, want):
+            np.testing.assert_array_equal(g.view(np.int32), np.asarray(pw))
 
 
 def _halve(v, m, off):
