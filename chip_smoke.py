@@ -2,9 +2,10 @@
 """Smoke run of the lac_tpu_torch port on one CUDA card, and of its mesh
 on every card.
 
-    python3 chip_smoke.py           # phases 1-14; one card is enough
+    python3 chip_smoke.py           # phases 1-15; one card is enough
     python3 chip_smoke.py --mesh    # phases 1-3 and 12 alone, on every visible card
     python3 chip_smoke.py --phase14 # phases 1-3 and 14 alone
+    python3 chip_smoke.py --phase15 # phases 1-3 and 15 alone
 
 1. device: the card's name and power limit; the host must be x86-64
    (80-bit long double for Levinson-Durbin);
@@ -17,11 +18,17 @@ on every card.
    PyTorch call computes the same function, that call's time; checks
    that ``torch.argmin`` returns the first minimum on the card (the
    planner's tie-breaks rely on it);
-4. encodes a 3-minute 44.1 kHz 16-bit stereo file and a 60 s 96 kHz
-   24-bit stereo file (made from a seed) with the port's FrameEncoder on
-   the card, counting kernel launches and plan batches (the timed shapes
-   must account for every launch; each kernel's launches x (time -
-   bound) per file is printed), and holds the bytes to the port's host
+4. runs a service's warm-up (``serve.warm_process``), which captures the
+   plan graphs (:mod:`lac_tpu_torch.plan_graphs`) that an encode of up
+   to 484 full blocks replays; then encodes a 3-minute 44.1 kHz 16-bit
+   stereo file and a 60 s 96 kHz 24-bit stereo file (made from a seed)
+   with the port's FrameEncoder on the card, counting kernel launches,
+   plan batches and graph replays (every plan a replay, no capture after
+   the warm-up; the timed shapes must account for every launch, replays
+   included, here and in phases 6, 7, 10, 12 and 13, where each capture
+   adds one eager warm-up plan and is the only eager ``plan_group`` call
+   on the card besides the capture itself; each kernel's launches x
+   (time - bound) per file is printed), and holds the bytes to the port's host
    route (the native planner, plane pipeline off); runs the port's CLI
    encode and decode on both and holds the decoded PCM to the input;
    then a mono, a forced-ms, a forced-lr, a filtered-noise and a 30 s
@@ -57,7 +64,9 @@ on every card.
    more than the default start one;
 9. checks that neither jax nor any lac_tpu module was imported (at the end);
 10. the service (``serve.py``) on the card: phase 6's clips written as WAVs
-    and encoded through ``serve.serve`` in this process, pooled
+    and encoded through ``serve.serve`` in this process (every plan graph
+    dropped first, so that the first turn captures them inside the
+    service while its other threads run, and the second replays), pooled
     (``--workers=4``), ``--workers=4 --no-pool`` and ``--workers=1``, two
     turns each (every id answered once, every output equal to the host
     route, decodes through the service PCM-exact, launches accounted for,
@@ -142,7 +151,22 @@ on every card.
     (``bench_device_reader``) and the pack experiment
     (``bench_device_pack``: (256, 16384) lanes under kernel 6's k sequence,
     every lane's bytes equal to ``pack_stream`` and the native packer) with
-    their launches counted.
+    their launches counted;
+15. the captured plans: every plan shape a one-card encode replays (full
+    width at K = 64, 128 and 256 with the doubled batches, the three probe
+    shapes, the group route's 1024 x 256 cap), with and without
+    ``emit_fields``, under each of the four flag combinations: the replay
+    bit-exact against eager ``plan_group`` on the same inputs, then a
+    ragged batch on the same graph, exact, with the rows the full batch
+    left zeroed; captured while another thread uses the card (kernels,
+    ``.item()``, host copies, pinned buffers, ``synchronize``); captures,
+    replays, capture seconds, device memory with every graph held; host
+    dispatch and device time of one plan eager and replayed, in turns; a
+    batch's rows into the static buffer gathered then copied, or gathered
+    into it; in fresh processes, a second thread that synchronizes the card
+    during captures with ``torch.cuda.synchronize()`` (which CUDA refuses
+    beside a capture) and with ``plan_graphs.synchronize()`` (which waits
+    out a capture: every capture exact).
 
 Every phase raises on failure (non-zero exit, no result line). The line
 before the last is the kernel record, the last line the device record.
@@ -154,6 +178,7 @@ import json
 import os
 import pathlib
 import platform
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -165,7 +190,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lac_tpu_torch import cli, device_decode, device_pipeline, pool, serve, stream
+from lac_tpu_torch import HostCopy, cli, device_decode, device_pipeline, plan_graphs, pool, serve, stream
 from lac_tpu_torch import encoder as encoder_mod
 from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import DecodeError, FrameDecoder
@@ -177,7 +202,7 @@ from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.ops._backend import u32_from_bits
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
-from lac_tpu_torch.parallel import default_mesh, make_mesh, plan_group_sharded
+from lac_tpu_torch.parallel import default_mesh, make_mesh, mesh as mesh_mod, plan_group_sharded
 from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo
 from lac_tpu_torch.runtime import native
 from tests.signals import cases as golden_cases
@@ -580,58 +605,102 @@ def check_goldens(tmp):
 
 
 def count_plan_batches():
-    """Wrap the planner where the plane pipeline and the group route call it
-    (``plan_group_sharded`` calls the group route's): plan batches on the
-    card counted by kind (``PLAN_KINDS``); a row length that no timed shape
-    covers raises."""
+    """Wrap the planner where the plane pipeline, the group route and the
+    mesh call it (``planned``): plan batches on the card counted by kind
+    (``PLAN_KINDS``; a row length that no timed shape covers raises), and
+    under ``("captured", kind)`` the graphs those calls captured, each of
+    which ran one eager warm-up plan on the card first. ``plan_group``
+    is wrapped where the captures call it: its calls on CUDA tensors
+    count under ``"eager"`` (a capture's warm-up and the capture itself;
+    nothing else may run a plan eagerly on the card)."""
     calls = {}
     guard = threading.Lock()  # a mesh plans from one thread per entry
+    mine = threading.local()  # this thread's eager calls: a capture runs in the thread that plans
+
+    def add(key, k=1):
+        with guard:
+            calls[key] = calls.get(key, 0) + k
 
     def wrap(module, caller):
-        plan = module.plan_group
+        plan = module.planned
 
         def counted(pcm, *args, **kwargs):
-            if pcm.is_cuda:
-                kind = PLAN_KINDS[(caller, pcm.shape[1])]
-                with guard:
-                    calls[kind] = calls.get(kind, 0) + 1
-            return plan(pcm, *args, **kwargs)
+            if not pcm.is_cuda:
+                return plan(pcm, *args, **kwargs)
+            kind = PLAN_KINDS[(caller, pcm.shape[1])]
+            before = getattr(mine, "eager", 0)
+            out = plan(pcm, *args, **kwargs)
+            add(kind)
+            add(("captured", kind), (getattr(mine, "eager", 0) - before) // 2)
+            return out
 
-        module.plan_group = counted
+        module.planned = counted
 
+    eager = encoder_mod.plan_group
+
+    def counted_eager(pcm, *args, **kwargs):
+        if pcm.is_cuda:
+            mine.eager = getattr(mine, "eager", 0) + 1
+            add("eager")
+        return eager(pcm, *args, **kwargs)
+
+    encoder_mod.plan_group = counted_eager
     wrap(device_pipeline, "pipe")
     wrap(encoder_mod, "group")
+    wrap(mesh_mod, "group")
     return calls
 
 
 class Counted:
-    """Kernel launches and plan batches of a stretch of the run: the launch
-    counts are set to 0 on entry and read on exit (``launches``), the plan
-    batches of the stretch by kind (``plans``)."""
+    """Kernel launches, plan batches and captured plans of a stretch of the
+    run: the launch counts are set to 0 on entry (unless ``reset`` is
+    False) and what the stretch added is read on exit (``launches``), the
+    plan batches of the stretch by kind (``plans``), the captures they
+    made by kind (``captured``), and ``graphs``: ``plan_graphs.stats``'
+    replays, captures and capture seconds, and the eager ``plan_group``
+    calls on the card."""
 
-    def __init__(self, batches):
-        self.batches = batches
+    def __init__(self, batches, reset=True):
+        self.batches, self.reset = batches, reset
 
     def __enter__(self):
-        K.reset_launches()
-        self.before = dict(self.batches)
+        if self.reset:
+            K.reset_launches()
+        self.before = dict(K.launches), dict(self.batches), dict(plan_graphs.stats)
         return self
 
     def __exit__(self, *exc):
-        self.launches = dict(K.launches)
-        self.plans = {kind: self.batches.get(kind, 0) - self.before.get(kind, 0) for kind in PLAN_KINDS.values()}
+        launches, batches, stats = self.before
+
+        def added(key):
+            return self.batches.get(key, 0) - batches.get(key, 0)
+
+        self.launches = {k: v - launches[k] for k, v in K.launches.items()}
+        self.plans = {kind: added(kind) for kind in PLAN_KINDS.values()}
+        self.captured = {kind: added(("captured", kind)) for kind in PLAN_KINDS.values()}
+        self.graphs = {k: v - stats[k] for k, v in plan_graphs.stats.items()}
+        self.graphs["eager"] = added("eager")
 
 
-def check_accounting(label, shapes, plans, counts):
+def check_accounting(label, shapes, c):
     """The timed shapes are every shape the path launches: with the plan
-    batches of a stretch they account for every counted launch. Returns
-    the model (name -> launches, ms, ms over the bound)."""
+    batches of a stretch ``c`` (a :class:`Counted`), and the one eager
+    warm-up plan of each capture, they account for every counted launch,
+    replays included. Every plan on the card is a replay, and the only
+    eager ``plan_group`` calls on the card are a capture's warm-up and the
+    capture. Returns the model (name -> launches, ms, ms over the bound)."""
+    counts, g = c.launches, c.graphs
+    plans = {kind: c.plans[kind] + c.captured[kind] for kind in c.plans}
     model = per_encode(shapes, plans)
     check(all(model[k][0] == counts[k] for k in model) and counts[RESTORE] == counts[SCAN] == 0,
           f"{label}: launches {counts} differ from the timed shapes' {({k: v[0] for k, v in model.items()})}")
     check(counts["k_after_stateful_fused"] == plans["full"] + plans["group-full"] and
           counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"] + plans["group-probe"],
           f"{label}: kernel 6 runs once per full-width plan, kernels 2 and 3 once per probe plan: {counts}, {plans}")
+    check(g["replays"] == sum(c.plans.values()) and g["captures"] == sum(c.captured.values())
+          and g["eager"] == 2 * g["captures"],
+          f"{label}: plans {c.plans}, captures {c.captured}, graphs {g}: every plan on the card must be a replay, "
+          f"and every eager plan_group call on the card a capture's warm-up or the capture")
     return model
 
 
@@ -788,7 +857,7 @@ def check_kinds(audio, shapes, batches):
             got, wall, peak = timed_on_card(lambda: FrameEncoder(12, mode, 44100, 16, device="cuda").encode(l, r))
         check(got == ref, f"{label}: port bytes differ from the port's host route")
         check(c.plans["full"] > 0, f"{label}: the plane pipeline did not run")
-        check_accounting(label, shapes, c.plans, c.launches)
+        check_accounting(label, shapes, c)
         dl, dr, _ = FrameDecoder().decode(got)
         check(np.array_equal(dl, l) and np.array_equal(dr, np.asarray(r, np.int32)), f"{label}: decoded PCM differs")
         print(f"{label}: {len(l) // BLOCK} full blocks, port bytes == host route, decode PCM-exact; "
@@ -880,7 +949,7 @@ def check_batch_paths(tmp, shapes, batches):
     check(all(pooled.launches[k] > 0 for k in ENCODE_KERNELS), f"clip batch: a kernel never launched: {pooled.launches}")
     for name, turns in runs.items():
         for _, _, c in turns:
-            check_accounting(f"clip batch, {name}", shapes, c.plans, c.launches)
+            check_accounting(f"clip batch, {name}", shapes, c)
     # the counts are exact from any number of threads: four threads launch what one does
     check(all(runs["encode_batch, 4 threads"][t][2].launches == runs["file by file"][t][2].launches for t in (0, 1)),
           "clip batch: the threaded run's launch counts differ from the file-by-file run's")
@@ -908,7 +977,7 @@ def check_batch_paths(tmp, shapes, batches):
             got, wall, peak = timed_on_card(lambda: pool.encode_pooled(items, rate, depth))
         check(got == want, f"pooled, {label}: frames differ from the port's host route")
         check(c.plans["full"] > 0, f"pooled, {label}: no wave reached the card")
-        check_accounting(f"pooled, {label}", shapes, c.plans, c.launches)
+        check_accounting(f"pooled, {label}", shapes, c)
         check_decodes(f"pooled, {label}", got, items)
         print(f"pooled, {label}: {sum(len(l) // BLOCK for l, _ in items)} full blocks, frames == host route, decode "
               f"PCM-exact; {c.plans['full']} full-width and {c.plans['probe']} probe plans; {wall:.3f} s; "
@@ -972,7 +1041,7 @@ def check_stream(tmp, shapes, batches):
             os.environ.pop("LAC_TPU_STREAM_BLOCKS", None)
             check(rc == 0 and read(lac) == mem, f"long file, {route} route of the CLI: bytes differ from the in-memory encode")
             check(all(c.launches[k] > 0 for k in ENCODE_KERNELS), f"long file, {route} route: a kernel never launched")
-            check_accounting(f"long file, {route} route", shapes, c.plans, c.launches)
+            check_accounting(f"long file, {route} route", shapes, c)
             walls[route].append((wall, peak, c))
     finally:
         stream.encode_wav_to_lac = real
@@ -1182,6 +1251,9 @@ def check_serve(tmp, shapes, batches, batch, long_file):
             super()._finish(*args)
 
     serve._PoolBatcher = Recorded  # restored at the end of the mixed batch
+    # no graph held: the first turn's waves capture their plans inside the service, its job, batcher, dispatch
+    # and finish threads running (check_accounting holds every capture to one warm-up and one capture call)
+    plan_graphs.release()
     modes = {"pooled, --workers=4": ["--workers=4"], "--workers=4 --no-pool": ["--workers=4", "--no-pool"],
              "--workers=1": ["--workers=1"], "pooled, finishes held": ["--workers=4"]}
     runs = {name: [] for name in modes}
@@ -1199,7 +1271,7 @@ def check_serve(tmp, shapes, batches, batch, long_file):
                 check(all(r["ok"] for r in got.values()),
                       f"service, {name}: a job failed: {[r for r in got.values() if not r['ok']][:3]}")
                 check_outputs(f"service, {name}", outs, backs)
-                check_accounting(f"service, {name}", shapes, c.plans, c.launches)
+                check_accounting(f"service, {name}", shapes, c)
                 pooled = name.startswith("pooled")
                 check(bool(waves.walls) == pooled, f"service, {name}: waves {waves.text()}")
                 runs[name].append({"wait_s": at_id(wire.lines, n + 1), "peak": peak, "c": c, "waves": waves.walls,
@@ -1208,6 +1280,9 @@ def check_serve(tmp, shapes, batches, batch, long_file):
         serve._PoolBatcher = real_batcher
         raise
     Recorded.hold = False
+    captures = [[r["c"].graphs["captures"] for r in turns] for turns in zip(*runs.values())]
+    check(sum(captures[0]) > 0 and not any(captures[1]),
+          f"service: want the first turn to capture the plan graphs and the second to replay them: {captures}")
     pooled = runs["pooled, --workers=4"]
     check(all(pooled[0]["c"].launches[k] > 0 for k in ENCODE_KERNELS),
           f"service: a kernel never launched: {pooled[0]['c'].launches}")
@@ -1217,7 +1292,10 @@ def check_serve(tmp, shapes, batches, batch, long_file):
         r0, r1 = turns
         print(f"  {name:22s} {r0['wait_s']:.3f} s first, {r1['wait_s']:.3f} s second = {frames / r1['wait_s']:,.0f} "
               f"frames/s; first job {r0['first_ms']:.1f} / {r1['first_ms']:.1f} ms; {r1['c'].plans['full']} full-width "
-              f"and {r1['c'].plans['probe']} probe plans; peak device memory {gib(r0['peak'])} / {gib(r1['peak'])}")
+              f"and {r1['c'].plans['probe']} probe plans; plan graphs captured {r0['c'].graphs['captures']} / "
+              f"{r1['c'].graphs['captures']} ({r0['c'].graphs['capture_s']:.2f} s), replayed "
+              f"{r0['c'].graphs['replays']} / {r1['c'].graphs['replays']}; peak device memory {gib(r0['peak'])} / "
+              f"{gib(r1['peak'])}")
         for r in turns:
             if r["waves"]:
                 print(f"    waves: {', '.join(f'{b} blocks {s:.3f} s' for b, s in r['waves'])}")
@@ -1262,7 +1340,7 @@ def check_serve(tmp, shapes, batches, batch, long_file):
     check("Thread usage: " in got[5]["message"], f"service, mixed batch: --debug-threads printed {got[5]}")
     check(len(streamed) == 1, f"service, mixed batch: the streaming route ran {len(streamed)} times, want 1")
     check(len(waves.walls) >= 4, f"service, mixed batch: want a wave per key (4), got {waves.text()}")
-    check_accounting("service, mixed batch", shapes, c.plans, c.launches)
+    check_accounting("service, mixed batch", shapes, c)
     print(f"service, mixed batch (mono, 96 kHz 24-bit, 16-bit auto and lr clips, --debug-threads, a clip without a "
           f"full block, the 2,100-block WAV): every output == its reference, the long WAV streamed; {wall:.3f} s; "
           f"waves {waves.text()}; peak device memory {gib(peak)}")
@@ -1785,7 +1863,7 @@ def check_group_route(tmp, shapes, batches):
             if route == "card" and len(walls["lanes card"]) == 1:
                 check(c.plans["full"] == c.plans["probe"] == 0, f"{label}: the plane pipeline ran: {c.plans}")
                 check(c.plans["group-full"] + c.plans["group-probe"] > 0, f"{label}: no group plan on the card")
-                check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+                check_accounting(f"group route, {label}", shapes, c)
                 add(c)
                 first = (c.plans, peak)
         lens = sorted({len(x) for x in lanes})
@@ -1814,7 +1892,7 @@ def check_group_route(tmp, shapes, batches):
             check(got == want, f"group route, {label}: bytes differ from the host route's ({route})")
             if len(walls["card"]) == 1 and route == "card":
                 check(sum(c.plans[k] for k in group_plans) == 1, f"group route, {label}: want one batch: {c.plans}")
-                check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+                check_accounting(f"group route, {label}", shapes, c)
                 add(c)
                 cap_peak = peak
         print(f"  one batch at the cap, {label}: bytes == host route; card "
@@ -1850,7 +1928,7 @@ def check_group_route(tmp, shapes, batches):
             check(got == want, f"group route, {label}: bytes differ from the host route's")
             check(sum(replanned) > 0, f"group route, {label}: no lane of the card's batch walked the ladder")
             check(c.plans["group-full"] == 1, f"group route, {label}: want one plan batch on the card, got {c.plans}")
-            check_accounting(f"group route, {label}", shapes, c.plans, c.launches)
+            check_accounting(f"group route, {label}", shapes, c)
             for k in launches:
                 launches[k] += c.launches[k]
             print(f"  ChannelBlockEncoder(device='cuda'), {label}: bytes == host route ({sum(map(len, got))} bytes); "
@@ -2067,7 +2145,7 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
         kind = "group-full" if n == BLOCK else "group-probe"
         check(c.plans == {k: D if k == kind else 0 for k in PLAN_KINDS.values()},
               f"plan_group_sharded ({rows}, {n}): want one plan per shard, got {c.plans}")
-        check_accounting(f"plan_group_sharded ({rows}, {n})", shapes, c.plans, c.launches)
+        check_accounting(f"plan_group_sharded ({rows}, {n})", shapes, c)
         print(f"  plan_group_sharded ({rows}, {n}) on a stand-in mesh of {D}: meta == plan_group's, "
               f"{got['total_token_bits']} lanes counted, launches {c.launches}")
 
@@ -2078,8 +2156,8 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
         got = FrameEncoder(12, 2, 44100, 16, device="cuda", mesh=stand_in).encode(left, right)
         torch.cuda.synchronize()
     check(got == cd_ref, "3-minute file on the stand-in mesh: bytes differ from one card's")
-    check_accounting("3-minute file on the stand-in mesh", shapes, c_cd.plans, c_cd.launches)
-    check_accounting("3-minute file on one card", shapes, one.plans, one.launches)
+    check_accounting("3-minute file on the stand-in mesh", shapes, c_cd)
+    check_accounting("3-minute file on one card", shapes, one)
     # the plane pipeline's plans are one card's; the group route splits each of its batches over the shards
     check(all(c_cd.plans[k] == (D if k.startswith("group") else 1) * one.plans[k] for k in PLAN_KINDS.values()),
           f"3-minute file: the stand-in mesh planned {c_cd.plans}, one card {one.plans}")
@@ -2088,7 +2166,7 @@ def check_mesh(tmp, shapes, batches, cd, batch, long_file):
     bad = [i for i, (g, w) in enumerate(zip(got, refs)) if g != w]
     check(not bad, f"clips pooled on the stand-in mesh: frames {bad} differ from the host route")
     check_decodes("clips pooled on the stand-in mesh", got, clips)
-    check_accounting("clips pooled on the stand-in mesh", shapes, c_clips.plans, c_clips.launches)
+    check_accounting("clips pooled on the stand-in mesh", shapes, c_clips)
     if torch.cuda.device_count() == 1:
         check(default_mesh() is None, "default_mesh() with one visible card must be None")
     mesh_launches = {k: c_cd.launches[k] + c_clips.launches[k] for k in K.launches}
@@ -2141,7 +2219,7 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
             with Counted(batches) as c, ChunkTimeline(cards) as tl:
                 got, wall, peaks = on_all(lambda: fn(m))
             check(ok(got), f"{label}, {'mesh' if m else 'one card'}: bytes differ from one card's")
-            check_accounting(f"{label}, {'mesh' if m else 'one card'}", shapes, c.plans, c.launches)
+            check_accounting(f"{label}, {'mesh' if m else 'one card'}", shapes, c)
             cl, by_kernel = per_card_launches()
             walls.append(f"{'mesh' if m else 'one card'} {wall:.3f} s")
             if m is None:
@@ -2191,7 +2269,7 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
         check(rc == 0 and all(r["ok"] for r in got.values()), "mesh, service: a job failed")
         bad = [i for i, o in enumerate(outs) if take(o) != refs[i]]
         check(not bad, f"mesh, service, {'mesh' if on else 'one card'}: outputs {bad} differ from one card's")
-        check_accounting("mesh, service", shapes, c.plans, c.launches)
+        check_accounting("mesh, service", shapes, c)
         cl, by_kernel = per_card_launches()
         check(set(cl) == (set(cards) if on else {0}), f"mesh, service: launches on cards {cl}")
         walls.append(f"{'mesh' if on else 'one card'} {at_id(wire.lines, len(clips) + 1):.3f} s")
@@ -2212,7 +2290,7 @@ def check_real_mesh(tmp, shapes, batches, cd, batch, long_file):
         finally:
             os.environ.pop("LAC_TPU_CLI_MESH", None)
         check(rc == 0 and take(lac) == long_ref, "mesh, long WAV through the CLI in this process: bytes differ")
-        check_accounting("mesh, long WAV through the CLI", shapes, c.plans, c.launches)
+        check_accounting("mesh, long WAV through the CLI", shapes, c)
         walls.append(f"{'mesh' if on else 'one card'} {wall:.3f} s")
     print(f"  long WAV through the CLI's streaming route in this process: walls in turns {', '.join(walls)}")
     walls = []
@@ -2347,12 +2425,236 @@ def check_phase14(batches, records, by_path):
     print(f"phase 14 (kernel 8, the experiments): {time.perf_counter() - t14:.1f} s")
 
 
+# ------------------------------------------------------------ the captured plans
+
+
+# every plan shape a one-card encode replays: full-width batches at K = 64, 128 and 256 and their doubled
+# batches, the probe batch of each K, and the group route's caps (128 x 16384 is the K = 64 doubled batch)
+GRAPH_SHAPES = [(64, BLOCK), (128, BLOCK), (256, BLOCK), (768, 256), (1536, 256), (3072, 256), (GROUP_PROBE_LANES, 256)]
+GRAPH_FLAGS = [(True, True), (False, True), (True, False), (False, False)]  # (zero_run, partitioning)
+
+
+def graph_inputs(rows, n, seed):
+    """``rows`` lanes of ``n`` samples on card 0 with their candidates from
+    the host Levinson-Durbin: gliding-sine and filtered-noise planes,
+    silent lanes, sparse bursts and 24-bit extremes (every token class)."""
+    rng = np.random.RandomState(seed)
+    frames = rows * n // 2 + n
+    planes = [np.concatenate(fn(frames, 44100, 16, seed))[: rows * n].reshape(rows, n)
+              for fn in (gliding_stereo, filtered_noise_stereo)]
+    pcm = np.where((np.arange(rows) % 3 == 2)[:, None], planes[1], planes[0]).astype(np.int32)
+    pcm[5::8] = 0
+    pcm[6::8] = np.where(rng.rand(len(pcm[6::8]), n) < 0.02, rng.randint(-300, 300, (len(pcm[6::8]), n)), 0)
+    pcm[7::16] = np.where(np.arange(n) % 2, (1 << 23) - 1, -(1 << 23))
+    coeffs, _, lvalid, _ = lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
+    dev = torch.device("cuda", 0)
+    return (torch.from_numpy(pcm).to(dev), *plan_inputs_to_torch(coeffs, lvalid, dev))
+
+
+def graph_equal(got, want):
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+class CardNoise(threading.Thread):
+    """A thread that uses card 0 while plans are captured, the way the
+    pipeline's other threads do: kernels on the default stream, ``.item()``,
+    stream syncs, new device memory, pinned buffers and host copies (every
+    one a call a capture in global mode forbids), and the port's
+    device-wide synchronize, which waits until no plan is being captured."""
+
+    def __init__(self):
+        super().__init__(name="chip-smoke-card-noise", daemon=True)
+        self.stop, self.rounds, self.failure = threading.Event(), 0, None
+
+    def run(self):
+        try:
+            with torch.cuda.device(0):
+                while not self.stop.is_set():
+                    x = torch.arange(1 << 20, device="cuda", dtype=torch.int64) * (self.rounds + 1)
+                    check(int(x.sum().item()) == (self.rounds + 1) * ((1 << 20) * ((1 << 20) - 1) // 2),
+                          "card noise: wrong sum")
+                    HostCopy(x[:1024]).numpy()
+                    torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)
+                    torch.cuda.current_stream().synchronize()
+                    plan_graphs.synchronize()  # the port's device-wide synchronize: it waits out a capture
+                    self.rounds += 1
+        except BaseException as e:  # noqa: BLE001 — raised by the caller after join
+            self.failure = e
+
+
+# a fresh process: a (64, 16384) plan captured three times while a second thread synchronizes the card
+# without a pause, with torch.cuda.synchronize ("raw") or with plan_graphs.synchronize ("locked")
+SYNC_CHILD = r"""
+import json, sys, threading
+import numpy as np
+import torch
+from lac_tpu_torch import plan_graphs
+from lac_tpu_torch.encoder import lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
+from lac_tpu_torch.runtime import native
+
+mode = sys.argv[1]
+pcm = np.random.RandomState(3).randint(-3000, 3000, (64, 16384)).astype(np.int32)
+coeffs, _, lvalid, _ = lpc_candidates_from_lags(native.autocorr(pcm, 12), 16384)
+pt = torch.from_numpy(pcm).cuda()
+ct, vt = plan_inputs_to_torch(coeffs, lvalid, pt.device)
+want = plan_group(pt, ct, vt, 16384, True, True)
+torch.cuda.synchronize()
+stop, rounds, errors = threading.Event(), [0], []
+
+
+def noise():
+    while not stop.is_set():
+        try:
+            torch.cuda.synchronize() if mode == "raw" else plan_graphs.synchronize()
+            rounds[0] += 1
+        except Exception as e:
+            errors.append(type(e).__name__)
+
+
+t = threading.Thread(target=noise, daemon=True)
+t.start()
+exact = 0
+try:
+    for _ in range(3):
+        plan_graphs.release()
+        exact += bool(torch.equal(plan_graphs.planned(pt, ct, vt, 16384, True, True, rows=64), want))
+    result = f"{exact} of 3 captures exact"
+except Exception as e:
+    result = f"capture failed: {type(e).__name__}: {(str(e).splitlines() or [''])[0]}"
+stop.set()
+t.join()
+print("SYNC " + json.dumps({"mode": mode, "result": result, "rounds": rounds[0], "noise_errors": errors[:3]}))
+"""
+
+
+def check_sync_during_capture():
+    """Why the port's device-wide synchronize takes the capture lock: in a
+    fresh process, a second thread's ``torch.cuda.synchronize()`` beside a
+    capture (printed, not required to fail: it races the capture), then
+    ``plan_graphs.synchronize()`` (the captures must all be exact)."""
+    for mode in ("raw", "locked"):
+        rc, out, wall, _ = run_child(["-c", SYNC_CHILD, mode], limit_s=240)
+        line = next((line for line in out.splitlines() if line.startswith("SYNC ")), None)
+        check(line is not None, f"sync-during-capture child ({mode}) printed no result ({rc}):\n{out[-3000:]}")
+        got = json.loads(line[5:])
+        if mode == "locked":
+            check(rc == 0 and got["result"] == "3 of 3 captures exact" and not got["noise_errors"],
+                  f"captures beside plan_graphs.synchronize: {got}")
+        print(f"  a second thread synchronizing the card during captures, {mode}: {got['result']}; "
+              f"{got['rounds']} synchronizes, errors {got['noise_errors']} (fresh process, {wall:.1f} s)")
+
+
+def check_graphs(batches):
+    """Phase 15: the captured plans. Every shape a one-card encode replays,
+    with and without token fields, under every flag combination: the
+    replay bit-exact against eager ``plan_group`` on the same inputs, then
+    a ragged batch on the same graph (the rows a fuller batch left zeroed),
+    captured while another thread uses the card; captures, replays and
+    capture seconds; host dispatch and device time of one plan, eager and
+    replayed; the gather into the static buffer; memory with every graph
+    held. Returns the launches of the replays."""
+    t15 = time.perf_counter()
+    inputs = {BLOCK: graph_inputs(256, BLOCK, 21), 256: graph_inputs(3072, 256, 22)}
+    plan_graphs.release()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    noise = CardNoise()
+    noise.start()
+    firsts = {}
+    try:
+        with Counted(batches) as c:
+            for rows, n in GRAPH_SHAPES:
+                pcm, ct, vt = inputs[n]
+                pcm, ct, vt = pcm[:rows], ct[:, :rows], vt[:, :rows]
+                nsub = rows * 3 // 8 + 1
+                for emit in (False, True):
+                    for zr, part in GRAPH_FLAGS:
+                        want = plan_group(pcm, ct, vt, n, zr, part, emit_fields=emit)
+                        t0 = time.perf_counter()
+                        got = plan_graphs.planned(pcm, ct, vt, n, zr, part, emit_fields=emit, rows=rows)
+                        torch.cuda.synchronize()
+                        firsts[(rows, n, zr, part, emit)] = time.perf_counter() - t0
+                        label = f"({rows}, {n}), zero_run={zr}, partitioning={part}, emit_fields={emit}"
+                        check(graph_equal(got, want), f"plan graph {label}: the replay differs from plan_group")
+                        ragged = plan_graphs.planned(pcm[:nsub], ct[:, :nsub], vt[:, :nsub], n, zr, part,
+                                                     emit_fields=emit, rows=rows)
+                        eager = plan_group(pcm[:nsub], ct[:, :nsub], vt[:, :nsub], n, zr, part, emit_fields=emit)
+                        check(graph_equal(ragged, eager),
+                              f"plan graph {label}: a ragged batch of {nsub} after the full one differs from eager")
+                        static = plan_graphs._CACHE.entries[(0, rows, n, zr, part, emit)][0]
+                        check(not static.pcm[nsub:].any() and not static.coeffs[:, nsub:].any()
+                              and not static.valid[:, nsub:].any(),
+                              f"plan graph {label}: rows {nsub}.. of the full batch were carried into the ragged one")
+    finally:
+        noise.stop.set()
+        noise.join()
+    if noise.failure is not None:
+        raise noise.failure
+    torch.cuda.synchronize()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    g = c.graphs
+    keys = len(GRAPH_SHAPES) * 2 * len(GRAPH_FLAGS)
+    check(g["captures"] == keys and g["replays"] == 2 * keys and len(plan_graphs.captured_keys()) == keys,
+          f"phase 15: want {keys} captures and {2 * keys} replays, got {g}")
+    check(noise.rounds > 0, "phase 15: the card-noise thread never ran")
+    check(all(c.launches[k] > 0 for k in ENCODE_KERNELS), f"phase 15: a kernel never launched: {c.launches}")
+    print(f"plan graphs: {keys} shapes x flags x emit_fields captured, each replay bit-exact against plan_group and "
+          f"a ragged batch after the full one exact with the stale rows zeroed; {g['captures']} captures in "
+          f"{g['capture_s']:.2f} s, {g['replays']} replays; another thread used the card meanwhile "
+          f"({noise.rounds} rounds of kernels, .item(), host copies, pinned buffers and synchronize)")
+    for rows, n in GRAPH_SHAPES:
+        times = [firsts[(rows, n, True, True, emit)] for emit in (False, True)]
+        print(f"  ({rows}, {n}): first call (warm-up, capture, replay) {times[0]:.3f} s, with emit_fields "
+              f"{times[1]:.3f} s")
+    print(f"  device memory: {gib(reserved0)} reserved before, {gib(reserved)} with the {keys} graphs held "
+          f"(their static buffers and one pool); peak allocated {gib(peak)}")
+
+    # one plan at the pipeline's two shapes: host dispatch (the call returns before the card finishes) and
+    # device time (CUDA events), eager and replayed, in turns
+    for rows, n in ((256, BLOCK), (3072, 256)):
+        pcm, ct, vt = inputs[n]
+        pcm, ct, vt = pcm[:rows], ct[:, :rows], vt[:, :rows]
+        rec = {"eager": [], "replay": []}
+        for name in ("eager", "replay", "replay", "eager") * 3:
+            fn = (lambda: plan_group(pcm, ct, vt, n, True, True)) if name == "eager" else (
+                lambda: plan_graphs.planned(pcm, ct, vt, n, True, True, rows=rows))
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            host = time.perf_counter() - t0
+            stop.record()
+            torch.cuda.synchronize()
+            rec[name].append((host * 1e3, start.elapsed_time(stop)))
+        txt = "; ".join(f"{name} host dispatch {statistics.median(h for h, _ in r):.3f} ms, device "
+                        f"{statistics.median(d for _, d in r):.3f} ms" for name, r in rec.items())
+        print(f"  one plan of ({rows}, {n}), median of 6 in turns: {txt}")
+
+    # the rows of a batch into the static buffer: gathered first and copied, or gathered into it
+    src = torch.from_numpy(np.ascontiguousarray(np.tile(inputs[BLOCK][0].cpu().numpy(), (4, 1)))).cuda()
+    idx = torch.from_numpy(np.random.RandomState(23).permutation(len(src))[:256]).cuda()
+    static = torch.empty((256, BLOCK), dtype=torch.int32, device="cuda")
+    ways = {"index_select, then copy_ into the buffer": lambda _: static.copy_(src.index_select(0, idx)),
+            "index_select(out=buffer)": lambda _: torch.index_select(src, 0, idx, out=static)}
+    times = {k: [] for k in ways}
+    for k in (*ways, *reversed(list(ways))):
+        times[k].append(time_ms(ways[k], None))
+    print("  a (256, 16384) batch into the static buffer from (1024, 16384) planes (CUDA graph of 20, in turns): "
+          + "; ".join(f"{k} {min(t):.4f} ms" for k, t in times.items()))
+    check_sync_during_capture()
+    print(f"phase 15 (the captured plans): {time.perf_counter() - t15:.1f} s")
+    return c.launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this smoke run needs a CUDA card")
-    mesh_only, phase14_only = sys.argv[1:] == ["--mesh"], sys.argv[1:] == ["--phase14"]
-    if sys.argv[1:] and not (mesh_only or phase14_only):
-        raise SystemExit("usage: python3 chip_smoke.py [--mesh | --phase14]")
+    mesh_only, phase14_only, phase15_only = (sys.argv[1:] == [flag] for flag in ("--mesh", "--phase14", "--phase15"))
+    if sys.argv[1:] and not (mesh_only or phase14_only or phase15_only):
+        raise SystemExit("usage: python3 chip_smoke.py [--mesh | --phase14 | --phase15]")
     t_start = time.perf_counter()
 
     # 1. device and host
@@ -2402,6 +2704,11 @@ def main():
         finish(t_start, records, by_path, "pack", [SCAN, "k_after_stateful_fused"])
         return
 
+    if phase15_only:  # phase 15 alone: the captured plans
+        by_path = {"graphs": check_graphs(count_plan_batches())}
+        finish(t_start, records, by_path, "graphs", ENCODE_KERNELS)
+        return
+
     # 4. real-size encodes through the port's main path, held to the port's host route
     audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
              for label, sr, depth, frames, seed in FILES]
@@ -2419,40 +2726,49 @@ def main():
               f"host route (native planner) {time.perf_counter() - t0:.2f} s, {len(refs[-1])} bytes")
 
     batches = count_plan_batches()
+    # the warm-up a service process runs (serve.warm_process): the build, then on the card the plan graphs an
+    # encode of up to the 3-minute file's 484 full blocks replays, then a synthetic encode
+    s0 = dict(plan_graphs.stats)
+    _, warm_s, _ = timed_on_card(lambda: serve.warm_process(FILES[0][3] // BLOCK, device="cuda"))
+    warmed = {k: plan_graphs.stats[k] - s0[k] for k in s0}
+    print(f"warm-up (serve.warm_process({FILES[0][3] // BLOCK})): {warm_s:.2f} s; {warmed['captures']} plan graphs "
+          f"captured in {warmed['capture_s']:.2f} s, {warmed['replays']} replays; graphs held "
+          f"{[k[1:3] for k in plan_graphs.captured_keys()]}; device memory reserved "
+          f"{gib(torch.cuda.memory_reserved())}")
+    check(warmed["captures"] >= 7, f"the warm-up captured {warmed['captures']} plan graphs, want the grid's 7")
     K.reset_launches()
-    per_file = []
-    plans_per_file = []
+    per_file, counted = [], []
     for (label, sr, depth, (left, right)), ref in zip(audio, refs):
-        before, plans_before = dict(K.launches), dict(batches)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = FrameEncoder(12, 2, sr, depth, device="cuda").encode(left, right)
-        torch.cuda.synchronize()
-        per_file.append((time.perf_counter() - t0, {k: K.launches[k] - before[k] for k in before},
-                         torch.cuda.max_memory_allocated()))
-        plans_per_file.append({kind: batches.get(kind, 0) - plans_before.get(kind, 0) for kind in PLAN_KINDS.values()})
+        with Counted(batches, reset=False) as c:
+            got, wall, peak = timed_on_card(lambda: FrameEncoder(12, 2, sr, depth, device="cuda").encode(left, right))
+        per_file.append((wall, c.launches, peak, torch.cuda.max_memory_reserved()))
+        counted.append(c)
         check(got == ref, f"{label}: port bytes differ from the port's host route")
+        check(c.graphs["captures"] == 0, f"{label}: after the warm-up every plan must replay a graph of the "
+                                         f"grid, but {c.graphs['captures']} were captured: {c.captured}")
     launches = dict(K.launches)
     # the group route plans the lanes of the tail blocks (an uncertain tail's probe lanes)
-    full = batches.get("full", 0) + batches.get("group-full", 0)
-    probe = batches.get("probe", 0) + batches.get("group-probe", 0)
-    print(f"main path: {full} full-width and {probe} probe plan batches ({batches}); launches {launches}")
+    full = sum(c.plans["full"] + c.plans["group-full"] for c in counted)
+    probe = sum(c.plans["probe"] + c.plans["group-probe"] for c in counted)
+    replays = sum(c.graphs["replays"] for c in counted)
+    print(f"main path: {full} full-width and {probe} probe plan batches, {replays} graph replays and no capture; "
+          f"launches {launches}")
     check(all(launches[k] > 0 for k in ENCODE_KERNELS), f"a kernel of the path never launched: {launches}")
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
           "kernels 2 and 3 must run only on probe plan batches")
     # the timed shapes are every shape the path launches: they account for every launch
-    for (label, *_), (_, counts, _), plans in zip(FILES, per_file, plans_per_file):
-        model = check_accounting(label, shapes, plans, counts)
+    for (label, *_), c in zip(FILES, counted):
+        model = check_accounting(label, shapes, c)
+        plans = c.plans
         print(f"{label}: {plans['full']} full-width and {plans['probe']} probe plans, and the group route's "
-              f"{plans['group-full']} and {plans['group-probe']}; per kernel, launches, "
+              f"{plans['group-full']} and {plans['group-probe']}, each a graph replay; per kernel, launches, "
               f"time at the timed shapes and launches x (time - bound), largest first:")
         for name, (n, ms, excess) in sorted(model.items(), key=lambda kv: -kv[1][2]):
             print(f"  {name:22s} {n:4d} launches, {ms:.4f} ms, {excess:.4f} ms over the bound")
 
     with tempfile.TemporaryDirectory() as tmp:
-        for (label, sr, depth, (left, right)), ref, (first_s, counts, peak) in zip(audio, refs, per_file):
+        for (label, sr, depth, (left, right)), ref, (first_s, counts, peak, reserved) in zip(audio, refs, per_file):
             t0 = time.perf_counter()
             again = FrameEncoder(12, 2, sr, depth, device="cuda").encode(left, right)
             torch.cuda.synchronize()
@@ -2469,7 +2785,8 @@ def main():
                   f"{label}: decoded PCM differs from the input")
             print(f"{label}: port bytes == host route; decode PCM-exact; "
                   f"encode {first_s:.3f} s first, {warm_s:.3f} s second = {len(left) / warm_s:,.0f} frames/s; "
-                  f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+                  f"peak device memory {peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB reserved (the "
+                  f"plan graphs' pool included); launches {counts}")
 
         kinds = check_kinds(audio, shapes, batches)
 
@@ -2505,6 +2822,9 @@ def main():
 
         # 14. kernel 8 and the experiments
         check_phase14(batches, records, by_path)
+
+        # 15. the captured plans: every shape bit-exact against eager plan_group
+        by_path["graphs"] = check_graphs(batches)
 
     finish(t_start, records, by_path, "files", KERNELS)
 

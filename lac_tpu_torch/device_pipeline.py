@@ -11,8 +11,10 @@ Per chunk of K full blocks:
    (lac/encoder.cpp:126-197), the 3 x 256-sample probe slices and exact
    autocorrelation lags of every plane,
 3. run the host's 80-bit Levinson-Durbin on the lags, gather the chosen
-   block rows on the device and plan them (``encoder.plan_group``); only
-   the compact ``meta`` rows come back,
+   block rows on the device and plan them in batches padded to a fixed
+   lane count, each a replay of a captured ``encoder.plan_group``
+   (:func:`.plan_graphs.planned`); only the compact ``meta`` rows come
+   back,
 4. replay the plans natively on the host (``lac_emit_blocks_planes``).
 
 Uncertain stereo blocks stay in the pipeline: their probe lanes for both
@@ -43,10 +45,11 @@ import numpy as np
 import torch
 
 from . import HostCopy, on_card, resolve_device, upload
-from .encoder import expand_plan, lpc_candidates_from_lags, plan_group, plan_inputs_to_torch
+from .encoder import expand_plan, lpc_candidates_from_lags, plan_inputs_to_torch
 from .format import constants as C
 from .ops.lpc import autocorrelation
 from .ops.stereo import estimate_stereo_mode, ms_transform
+from .plan_graphs import planned
 from .runtime import native
 from .utils import debug as _dbg
 
@@ -138,8 +141,9 @@ def chunk_width(nfull):
 def plan_batches(total, K):
     """Plan batches for ``total`` full-block lanes at chunk width ``K``:
     one doubled batch where 2K is a ladder width, else K lanes each.
-    Yields (lo, nsub, bp); the port plans exactly ``nsub`` rows (it has
-    no fixed executable shapes to pad to)."""
+    Yields (lo, nsub, bp): ``nsub`` lanes planned as a batch of ``bp``,
+    the shape of the captured plan that the batch replays
+    (lac_tpu/device_pipeline.py:786-800)."""
     lo = 0
     while lo < total:
         rem = total - lo
@@ -267,17 +271,18 @@ class _ChunkJob:
             self.probe_copies = None
 
     def _plan(self, src, rows, coeffs, lvalid, n, batches):
-        """Gather ``rows`` of ``src`` and plan them batch by batch; returns
-        the started host copies of the meta rows."""
+        """Gather ``rows`` of ``src`` and plan them batch by batch, each at
+        its padded shape ``bp``; returns the started host copies of the
+        meta rows."""
         pipe = self.pipe
         copies = []
         with _dbg.phase("plan_dispatch", self.device):
             rows_t = upload(rows, self.device)
             ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
-            for lo, nsub, _ in batches:
+            for lo, nsub, bp in batches:
                 g = src.index_select(0, rows_t[lo : lo + nsub])
-                meta = plan_group(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
-                                  pipe.zero_run, pipe.partitioning)
+                meta = planned(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
+                               pipe.zero_run, pipe.partitioning, rows=bp)
                 copies.append(HostCopy(meta))
         return copies
 
@@ -295,7 +300,8 @@ class _ChunkJob:
         with _dbg.phase("host_ld"):
             coeffs, used, lvalid, mvo = lpc_candidates_from_lags(plags[self.probe_rows], PROBE)
         self.probe_coeffs, self.probe_used, self.probe_mvo = coeffs, used, mvo
-        cap = 12 * K  # 12 probe lanes per block
+        # one fixed probe batch shape, 12 probe lanes x K blocks (lac_tpu/device_pipeline.py:859-876)
+        cap = 12 * K
         batches = [(lo, min(cap, len(rows) - lo), cap) for lo in range(0, len(rows), cap)]
         self.probe_copies = self._plan(self.dev["probes"], self.probe_rows, coeffs, lvalid, PROBE, batches)
 

@@ -39,6 +39,7 @@ from .ops._backend import shift_right, u32_from_bits
 from .ops.cuda_kernels import k_cost_partition_sums, k_cost_sums
 from .ops.stereo import estimate_stereo_mode, estimate_stereo_mode_host, ms_transform_host
 from .parallel.mesh import make_mesh
+from .plan_graphs import planned
 from .runtime import native
 from .utils import debug as _dbg
 from .utils.debug import debug_log
@@ -517,8 +518,10 @@ class _GroupJob:
     1. ``dispatch_autocorr``: upload the PCM (int16 for 16-bit content)
        and fetch its exact lags;
     2. ``dispatch_plan``: the host's 80-bit Levinson-Durbin on the lags,
-       then ``plan_group`` queued on the device, its ``meta`` (and, with
-       no native replay, its ``ship``) copied back without blocking;
+       then the plan queued on the device as a replay of the captured
+       ``plan_group`` of the padded batch (:func:`.plan_graphs.planned`),
+       its ``meta`` (and, with no native replay, its ``ship``) copied back
+       without blocking;
     3. ``finish``: payload bytes, by native replay or by the token packer.
 
     Lanes of the two hot lengths (16384 and the 256-sample probes), or a
@@ -545,15 +548,17 @@ class _GroupJob:
 
         enc, B, n = self.enc, self.B, self.n
         self.dev = dev = enc.plan_device()
-        # pad rows only to a multiple of the mesh (no fixed executable shapes)
+        # rows pad to a power of two, then to a multiple of the mesh, so that
+        # few plan shapes exist, each captured once (lac_tpu/encoder.py:665-670,
+        # whose doubling loop this rounding equals for power-of-two meshes)
         nd = len(enc.mesh) if enc.mesh is not None else 1
-        self.Bp = -(-B // nd) * nd
+        self.Bp = -(-(1 << max(0, (B - 1).bit_length())) // nd) * nd
         small = int(self.pcm_np.min(initial=0)) >= -32768 and int(self.pcm_np.max(initial=0)) <= 32767
         with _dbg.phase("h2d_upload", dev):
             pcm_pad = np.zeros((self.Bp, n), np.int16 if small else np.int32)
             pcm_pad[:B] = self.pcm_np
-            self.pcm_pad = pcm_pad
-            self.pcm_dev = upload(pcm_pad, dev)
+            self.pcm_pad = pcm_pad  # a mesh's shards (plan_group_sharded)
+            self.pcm_dev = upload(pcm_pad[:B], dev)  # planned pads it on the card
         self.need_lpc = any(c <= _max_valid_order(n) for c in C.LPC_ORDER_CANDIDATES)
         if self.need_lpc:
             # exact int64 lags on the device; the LD that needs them is next
@@ -580,19 +585,19 @@ class _GroupJob:
         with _dbg.phase("host_ld"):
             self.coeffs, self.used, self.lvalid, self.mvo = enc.lpc_analysis(self.pcm_np, n, precomputed_R=R)
         with _dbg.phase("plan_dispatch", self.dev):
-            pad = self.Bp - B
-            coeffs_pad = np.pad(self.coeffs, ((0, 0), (0, pad), (0, 0)))
-            lvalid_pad = np.pad(self.lvalid, ((0, 0), (0, pad)))
             if enc.mesh is not None:
                 from .parallel.mesh import plan_group_sharded
 
+                pad = self.Bp - B
+                coeffs_pad = np.pad(self.coeffs, ((0, 0), (0, pad), (0, 0)))
+                lvalid_pad = np.pad(self.lvalid, ((0, 0), (0, pad)))
                 self.fut = plan_group_sharded(enc.mesh, self.pcm_pad, coeffs_pad, lvalid_pad, n,
                                               enc.zero_run_enabled, enc.partitioning_enabled,
                                               emit_fields=not self.replay)
                 return
-            ct, vt = plan_inputs_to_torch(coeffs_pad, lvalid_pad, self.dev)
-            out = plan_group(self.pcm_dev, ct, vt, n, enc.zero_run_enabled, enc.partitioning_enabled,
-                             emit_fields=not self.replay)
+            ct, vt = plan_inputs_to_torch(self.coeffs, self.lvalid, self.dev)
+            out = planned(self.pcm_dev, ct, vt, n, enc.zero_run_enabled, enc.partitioning_enabled,
+                          emit_fields=not self.replay, rows=self.Bp)
             out = (out,) if self.replay else out
             self.copies = dict(zip(("meta", "ship"), (HostCopy(t) for t in out)))
 

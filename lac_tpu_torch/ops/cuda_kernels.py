@@ -15,9 +15,13 @@ from a CUDA tensor to the plain version. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else, so a run can show
 that its path went through the kernels, and ``card_launches[index][name]``
 the same on each card; the counts are exact from any number of host
-threads (one lock around each increment).
+threads (one lock around each increment). A CUDA graph's capture
+launches nothing: inside :func:`recording` a thread's wrappers record
+their launches instead, and each replay of the graph counts them
+(:func:`count_replay`, :mod:`..plan_graphs`).
 """
 
+import contextlib
 import threading
 
 import torch
@@ -50,7 +54,37 @@ def reset_launches():
         card_launches.clear()
 
 
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """While a CUDA graph is captured on this thread: the wrappers that
+    this thread calls record their launches in the dict this yields (name
+    -> launches) and count none, since a capture launches nothing."""
+    _capturing.launches = recorded = {}
+    try:
+        yield recorded
+    finally:
+        _capturing.launches = None
+
+
+def count_replay(recorded, device):
+    """Count one replay of a captured graph on ``device``: the launches
+    that :func:`recording` took down at its capture."""
+    with _count_lock:
+        for name, k in recorded.items():
+            launches[name] += k
+            if device.index is not None:
+                on_card = card_launches.setdefault(device.index, {})
+                on_card[name] = on_card.get(name, 0) + k
+
+
 def _count(name, device=None):
+    recorded = getattr(_capturing, "launches", None)
+    if recorded is not None:
+        recorded[name] = recorded.get(name, 0) + 1
+        return
     with _count_lock:  # += on a dict entry is a read and a write: not atomic between threads
         launches[name] += 1
         if device is not None:

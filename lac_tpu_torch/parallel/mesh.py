@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import HostCopy, check_device, on_card, upload
+from ..plan_graphs import planned
 
 _DEFAULT_MESH_CACHE = []
 
@@ -79,7 +80,9 @@ def _shard(a, lo, hi, axis, dev):
 def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=True, partitioning_enabled=True,
                        emit_fields=False):
     """:func:`..encoder.plan_group` with the batch axis split into
-    ``len(mesh)`` contiguous shards, one per mesh entry.
+    ``len(mesh)`` contiguous shards, one per mesh entry, each planned by
+    :func:`..plan_graphs.planned` (on a card, a replay of its own graph of
+    the shard's shape).
 
     ``pcm``: (B, n) int32 with B divisible by the mesh size (else
     ValueError); ``lpc_coeffs`` (5, B, 13) int16 and ``lpc_valid`` (5, B)
@@ -89,8 +92,6 @@ def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=Tru
     "total_token_bits": B}`` or, with ``emit_fields``, ``{"meta", "ship":
     (B, 6n) uint8, "total_token_bits"}``, the bits being each token's
     ``q + k + 1`` (Rice-like) or 2 (lac_tpu/parallel/mesh.py:72-87)."""
-    from ..encoder import plan_group
-
     B, D = pcm.shape[0], len(mesh)
     if B % D:
         raise ValueError(f"batch of {B} lanes does not split evenly over a mesh of {D}")
@@ -99,9 +100,9 @@ def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled=Tru
     for s, dev in enumerate(mesh):
         lo, hi = s * step, (s + 1) * step
         with on_card(dev):
-            out = plan_group(_shard(pcm, lo, hi, 0, dev), _shard(lpc_coeffs, lo, hi, 1, dev),
-                             _shard(lpc_valid, lo, hi, 1, dev), n, zero_run_enabled, partitioning_enabled,
-                             emit_fields=emit_fields)
+            out = planned(_shard(pcm, lo, hi, 0, dev), _shard(lpc_coeffs, lo, hi, 1, dev),
+                          _shard(lpc_valid, lo, hi, 1, dev), n, zero_run_enabled, partitioning_enabled,
+                          emit_fields=emit_fields)
             copies.append([HostCopy(t) for t in (out if emit_fields else (out,))])
     result = {"meta": np.concatenate([c[0].numpy() for c in copies]), "total_token_bits": B}
     if emit_fields:

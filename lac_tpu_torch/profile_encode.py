@@ -1,19 +1,26 @@
 """Profile warm encodes of the 3-minute 44.1 kHz 16-bit stereo file on the card.
 
-    python -m lac_tpu_torch.profile_encode [--runs N] [--mesh N]
+    python -m lac_tpu_torch.profile_encode [--runs N] [--mesh N] [--file 3min|60s]
 
 The file is the music-like corpus that chip_smoke.py encodes
-(:func:`gliding_stereo`, from a seed). After one cold encode, it
+(:func:`gliding_stereo`, from a seed; ``--file 60s``: its 60 s 96 kHz
+24-bit stereo file instead). After one cold encode, it
 prints, beside the card's name and power limit:
 
-* the warm encode wall (host clock to ``torch.cuda.synchronize()``),
-  median and range over ``N`` runs;
+* the first (cold) encode's wall and the plan graphs it captured
+  (:mod:`.plan_graphs`: captures, capture seconds), then the warm encode
+  wall (host clock to ``torch.cuda.synchronize()``), median and range
+  over ``N`` runs;
 * for the full-width (16384) and probe (256) plan batches of one encode:
-  the calls, the host time spent issuing them (``plan_group`` returns
-  before the device finishes), and the torch operators each call issues
-  (top-level operators under the call's profiler range) with the kernel
-  launches among them (``cudaLaunchKernel`` calls, the port's own
-  kernels included);
+  the calls and the host time spent issuing them in all and per call (a
+  plan returns before the device finishes), the graph replays and
+  captures of the profiled encode, and, where the profiler sees a call's
+  range (only on the thread that started it; the plane pipeline plans on
+  a dispatch thread of its own), the torch operators each call issues
+  with the kernel and graph launches among them (``cudaLaunchKernel``
+  and ``cudaGraphLaunch`` calls);
+* peak device memory over one warm encode, allocated and reserved (the
+  plan graphs' pool is reserved, and only in part allocated);
 * device busy: the union of device-activity intervals over the
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
   device time and launch count of each of the six kernels, by the name
@@ -27,6 +34,11 @@ entries (:mod:`.parallel.mesh`): cards 0..N-1 when that many are
 visible, else N stand-ins that take the visible cards in turn (two on
 one card share it). Device busy, device time and the port's kernel
 launches are then also printed per card.
+
+The script runs on a checkout whose plane pipeline plans eagerly (no
+``plan_graphs``) too: copied into an older checkout's package, it times
+that checkout's ``plan_group`` calls the same way, for turns against a
+parent commit.
 """
 
 import argparse
@@ -84,6 +96,9 @@ def filtered_noise_stereo(frames, sample_rate, depth, seed):
     right = np.clip((0.9 * np.roll(base, 3) + 0.6 * own) * env * 24000 * scale, -lim, lim - 1).astype(np.int32)
     return left, right
 
+
+# chip_smoke.py's two files: frames, sample rate, bit depth, seed
+FILES = {"3min": (7_938_000, 44100, 16, 1), "60s": (5_760_000, 96000, 24, 2)}
 
 # the six kernels by the names of their device functions (csrc/*.cu; row_scan
 # is one template, told apart by its op type; SplitAddU32 before AddU32)
@@ -157,13 +172,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--mesh", type=int, default=0, help="mesh entries (0: one card, no mesh)")
+    ap.add_argument("--file", choices=sorted(FILES), default="3min")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     device_pipeline.mark_warm()  # the card's path, not the cold route's host route
-    left, right = gliding_stereo(7_938_000, 44100, 16, 1)
+    frames, rate, depth, seed = FILES[args.file]
+    left, right = gliding_stereo(frames, rate, depth, seed)
     cards = torch.cuda.device_count()
     mesh = make_mesh([f"cuda:{i % cards}" for i in range(args.mesh)]) if args.mesh else None
     devices = sorted({d.index for d in mesh}) if mesh else [torch.cuda.current_device()]
@@ -175,37 +192,59 @@ def main(argv=None):
     def encode():
         synchronize()
         t0 = time.perf_counter()
-        FrameEncoder(12, 2, 44100, 16, device="cuda", mesh=mesh).encode(left, right)
+        FrameEncoder(12, 2, rate, depth, device="cuda", mesh=mesh).encode(left, right)
         synchronize()
         return time.perf_counter() - t0
 
-    encode()  # cold: kernel build, CUDA contexts
-    walls = [encode() for _ in range(args.runs)]
+    try:
+        from . import plan_graphs
+    except ImportError:  # an older checkout: every plan eager
+        plan_graphs = None
+    cold = encode()  # kernel build, CUDA contexts, plan graphs
     where = f"a mesh of {len(mesh)} on cards {devices}" if mesh else "one card"
-    print(f"warm encode, 3-min 44.1 kHz 16-bit stereo, {where}: median {statistics.median(walls) * 1e3:.1f} ms "
-          f"({min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f}, {args.runs} runs)")
+    graphs = (f"{plan_graphs.stats['captures']} plan graphs captured in {plan_graphs.stats['capture_s']:.2f} s"
+              if plan_graphs else "no plan graphs (eager plans)")
+    print(f"cold encode, {where}: {cold * 1e3:.1f} ms (kernel build, CUDA context); {graphs}")
+    walls = [encode() for _ in range(args.runs)]
+    for i in devices:
+        torch.cuda.reset_peak_memory_stats(i)
+    encode()
+    print("peak device memory over a warm encode: " + "; ".join(
+        f"card {i} {torch.cuda.max_memory_allocated(i) / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved(i) / 2**30:.2f} GiB reserved" for i in devices))
+    print(f"warm encode, {args.file} file ({rate} Hz, {depth}-bit stereo), {where}: "
+          f"median {statistics.median(walls) * 1e3:.1f} ms ({min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f}, "
+          f"{args.runs} runs)")
 
-    # one encode with the plan batches timed on the host and marked for the profiler
-    plan = device_pipeline.plan_group
+    # the plan batches timed on the host over one encode (a plan returns before the card finishes it), then
+    # one encode profiled with each plan batch marked
+    attr = "planned" if plan_graphs else "plan_group"
+    plan = getattr(device_pipeline, attr)
     host_s = {}
 
-    def timed(pcm, *rest):
+    def timed(pcm, *rest, **kwargs):
         n = pcm.shape[1]
         with torch.profiler.record_function(f"plan_group[{n}]"):
             t0 = time.perf_counter()
-            out = plan(pcm, *rest)
+            out = plan(pcm, *rest, **kwargs)
             host_s.setdefault(n, []).append(time.perf_counter() - t0)
         return out
 
-    device_pipeline.plan_group = timed
+    setattr(device_pipeline, attr, timed)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    cuda_kernels.reset_launches()
     try:
+        encode()
+        dispatch = {n: list(t) for n, t in host_s.items()}
+        stats0 = dict(plan_graphs.stats) if plan_graphs else None
+        cuda_kernels.reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
             with torch.profiler.record_function("encode"):
                 wall = encode()
     finally:
-        device_pipeline.plan_group = plan
+        setattr(device_pipeline, attr, plan)
+    if plan_graphs:
+        print(f"plan graphs in the profiled encode: {plan_graphs.stats['replays'] - stats0['replays']} replays, "
+              f"{plan_graphs.stats['captures'] - stats0['captures']} captures")
     # with CUDA activity each record_function range also appears on the
     # device timeline as an annotation: keep the host ranges, and count
     # only kernels and copies as device activity
@@ -213,18 +252,20 @@ def main(argv=None):
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges_of = {e.name for e in events if e.name == "encode" or e.name.startswith("plan_group[")}
 
-    def launches(ev):
-        return sum(launches(c) for c in ev.cpu_children) + ev.name.startswith("cudaLaunchKernel")
+    def launches(ev, name):
+        return sum(launches(c, name) for c in ev.cpu_children) + ev.name.startswith(name)
 
     for n, label in ((16384, "full-width"), (256, "probe")):
-        ranges = [e for e in events if e.name == f"plan_group[{n}]" and e.device_type == cpu]
-        if not ranges:
+        if n not in dispatch:
             continue
-        ops = [len(e.cpu_children) for e in ranges]
-        kern = [launches(e) for e in ranges]
-        print(f"plan_group {label} (n={n}): {len(ranges)} calls, host dispatch "
-              f"{sum(host_s[n]) * 1e3:.1f} ms in all; per call {statistics.mean(ops):.0f} torch operators, "
-              f"{statistics.mean(kern):.0f} kernel launches")
+        # the profiler sees these ranges only where the plans run on the thread that started it
+        ranges = [e for e in events if e.name == f"plan_group[{n}]" and e.device_type == cpu]
+        ops = (f"; per call {statistics.mean(len(e.cpu_children) for e in ranges):.0f} torch operators, "
+               f"{statistics.mean(launches(e, 'cudaLaunchKernel') for e in ranges):.0f} kernel launches, "
+               f"{statistics.mean(launches(e, 'cudaGraphLaunch') for e in ranges):.0f} graph launches"
+               if ranges else "")
+        print(f"plan_group {label} (n={n}): {len(dispatch[n])} calls, host dispatch {sum(dispatch[n]) * 1e3:.1f} ms "
+              f"in all, {statistics.mean(dispatch[n]) * 1e3:.2f} ms per call (an encode without the profiler){ops}")
     enc_range = next(e for e in events if e.name == "encode" and e.device_type == cpu)
     lo, hi = enc_range.time_range.start, enc_range.time_range.end
     dev = [(max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events

@@ -42,13 +42,16 @@ Where this module differs, and why:
   encode fails as the CLI does (``Error: ...``, rc 1) and the service
   goes on: ``decode`` is host-native. A ``--warm`` that fails answers
   id 0 with the error instead of ending the service.
-- :func:`warm_process` has no executable grid, no ``dtypes`` argument
-  and no ``LAC_TPU_WARM_THREADS``/``LAC_TPU_WARM_EXTRA``: a local card
-  loads no cached executables. It builds the native runtime and the
-  kernels, starts the context of every card of the default mesh
+- :func:`warm_process`'s grid is one of captured plans, not of compiled
+  executables: on every card of the default mesh
   (:func:`.parallel.default_mesh`, every visible card when there are two
-  or more), plans one lane on each and runs the same synthetic encode on
-  the mesh. Pooled waves and per-job encodes run on the same mesh.
+  or more) it captures the CUDA graphs of ``plan_group`` that an encode
+  of up to ``BLOCKS`` full blocks replays (:func:`warm_plan_shapes`),
+  then runs the same synthetic encode on the mesh. It has no ``dtypes``
+  argument and no ``LAC_TPU_WARM_THREADS``/``LAC_TPU_WARM_EXTRA``: a
+  capture takes the card for itself, so the grid is captured in turn,
+  and the gather and pad executables those knobs warmed are eager torch
+  operators here. Pooled waves and per-job encodes run on the same mesh.
 - The device watchdog has no host fallback. The reference forces
   ``LAC_TPU_BACKEND=numpy`` and re-runs stuck jobs natively; the port has
   no such backend, and running them on the host would hide that the card
@@ -136,21 +139,50 @@ def run_job(argv, device="cuda"):
     return rc, out_buf.getvalue(), err_buf.getvalue()
 
 
+def warm_plan_shapes(blocks, mesh_size=1, emit_fields=False):
+    """The plan shapes ``(rows, n, emit_fields)`` that an encode of at most
+    ``blocks`` full blocks replays on each card, in the order of
+    lac_tpu/serve.py:168-300's grid: the plane pipeline's full-width
+    batches at every chunk width of ``CHUNK_LADDER`` up to the one such an
+    encode takes, with their doubled batches, and its probe batch (12
+    lanes a block); then the group route's batches at its caps, split over
+    a mesh of ``mesh_size`` cards (``_GroupJob``'s padding). The plane
+    pipeline never emits token fields; the group route does without the
+    native runtime (``emit_fields``)."""
+    from . import device_pipeline as DP
+    from .encoder import ChannelBlockEncoder
+    from .format import constants as C
+
+    top = DP.chunk_width(max(int(blocks), 1))
+    widths = (DP.CHUNK_BLOCKS,) if DP.CHUNK_BLOCKS else tuple(k for k in DP.CHUNK_LADDER if k <= top)
+    shapes = []
+    for k in widths:
+        for bp in (k, 2 * k) if 2 * k in DP.CHUNK_LADDER else (k,):
+            shapes.append((bp, DP.N, False))
+        shapes.append((12 * k, DP.PROBE, False))
+    group = ChannelBlockEncoder(device="cpu")
+    for n in (C.MAX_BLOCK_SIZE, C.STEREO_PROBE_SIZE):
+        cap = group._batch_cap(n)
+        shapes.append((-(-cap // mesh_size), n, emit_fields))
+    return list(dict.fromkeys(shapes))
+
+
 def warm_process(blocks=128, device="cuda"):
     """Make this process ready for jobs on ``device`` now: build the
-    native runtime and, on the card, the kernels (at once), start the
-    CUDA context of every card of the default mesh and plan one
-    full-width lane on each, then encode a synthetic stereo signal of
-    ``blocks`` full blocks and a tail in memory, on the mesh (the
-    reference's signal, so the byte count equals
-    ``lac_tpu.serve.warm_process``'s). Returns that count.
+    native runtime and, on the card, the kernels (at once), capture on
+    every card of the default mesh the plans an encode of up to
+    ``blocks`` full blocks replays (:func:`warm_plan_shapes`), then encode
+    a synthetic stereo signal of ``blocks`` full blocks and a tail in
+    memory, on the mesh (the reference's signal, so the byte count
+    equals ``lac_tpu.serve.warm_process``'s). Returns that count.
     ``LAC_TPU_WARM_DEBUG=1`` writes each stage's seconds to stderr."""
     import numpy as np
 
     from . import device_pipeline, resolve_device
     from .encoder import FrameEncoder
     from .format import constants as C
-    from .parallel import default_mesh, plan_group_sharded
+    from .parallel import default_mesh
+    from .plan_graphs import planned
     from .runtime import native
 
     dbg = os.environ.get("LAC_TPU_WARM_DEBUG") == "1"
@@ -175,11 +207,19 @@ def warm_process(blocks=128, device="cuda"):
     _stage("build")
     device = resolve_device(device)
     mesh = default_mesh() if device.type == "cuda" else None
-    if mesh is not None:  # every card's context, kernels and tables, one lane each
-        n = C.MAX_BLOCK_SIZE
-        plan_group_sharded(mesh, np.zeros((len(mesh), n), np.int32), np.zeros((5, len(mesh), 13), np.int16),
-                           np.zeros((5, len(mesh)), bool), n, emit_fields=not native.native_available())
-    _stage("context")
+    if device.type == "cuda":  # every card's context and its plan graphs, captured on zero batches
+        import torch
+
+        cards = list(dict.fromkeys(mesh)) if mesh is not None else [device]
+        ncl = len(C.LPC_ORDER_CANDIDATES)
+        for rows, n, emit in warm_plan_shapes(blocks, len(mesh) if mesh is not None else 1,
+                                              emit_fields=not native.native_available()):
+            for card in cards:
+                planned(torch.zeros((rows, n), dtype=torch.int32, device=card),
+                        torch.zeros((ncl, rows, 13), dtype=torch.int16, device=card),
+                        torch.zeros((ncl, rows), dtype=torch.bool, device=card), n, True, True,
+                        emit_fields=emit, rows=rows)
+    _stage("graphs")
     # full blocks take the plane pipeline (from device_pipeline.MIN_FULL_BLOCKS
     # on), the tail just under a full block the host route
     n = int(blocks) * C.MAX_BLOCK_SIZE + C.MAX_BLOCK_SIZE - 7

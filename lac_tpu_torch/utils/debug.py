@@ -55,9 +55,9 @@ def phase(name: str, device=None):
         yield
     finally:
         if device is not None and device.type == "cuda":
-            import torch
+            from ..plan_graphs import synchronize
 
-            torch.cuda.synchronize(device)
+            synchronize(device)  # not while another thread captures a plan: it would break the capture
         dt = time.perf_counter() - t0
         with _phase_lock:
             _phase_acc[name] = _phase_acc.get(name, 0.0) + dt

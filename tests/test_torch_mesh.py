@@ -201,13 +201,13 @@ def test_chunks_go_round_robin_at_one_devices_widths(monkeypatch):
     (one device dispatches from a thread of its own too)."""
     left, right = _stereo(10 * B + 5, 41)
     seen = []
-    real = device_pipeline.plan_group
+    real = device_pipeline.planned
 
-    def recorded(pcm, *args):
+    def recorded(pcm, *args, **kwargs):
         seen.append((threading.current_thread().name, tuple(pcm.shape)))
-        return real(pcm, *args)
+        return real(pcm, *args, **kwargs)
 
-    monkeypatch.setattr(device_pipeline, "plan_group", recorded)
+    monkeypatch.setattr(device_pipeline, "planned", recorded)
     enc = FrameEncoder(12, 0, 44100, 16, device="cpu")
     one = device_pipeline.PlanePipeline(enc, left, right, 10, "lr", enc.device)
     want = one.run()
