@@ -19,15 +19,18 @@ on every card.
    that ``torch.argmin`` returns the first minimum on the card (the
    planner's tie-breaks rely on it);
 4. runs a service's warm-up (``serve.warm_process``), which captures the
-   plan graphs (:mod:`lac_tpu_torch.plan_graphs`) that an encode of up
-   to 484 full blocks replays; then encodes a 3-minute 44.1 kHz 16-bit
-   stereo file and a 60 s 96 kHz 24-bit stereo file (made from a seed)
-   with the port's FrameEncoder on the card, counting kernel launches,
-   plan batches and graph replays (every plan a replay, no capture after
-   the warm-up; the timed shapes must account for every launch, replays
-   included, here and in phases 6, 7, 10, 12 and 13, where each capture
-   adds one eager warm-up plan and is the only eager ``plan_group`` call
-   on the card besides the capture itself; each kernel's launches x
+   plan, analyze and lag graphs (:mod:`lac_tpu_torch.plan_graphs`) that
+   an encode of up to 484 full blocks replays; then encodes a 3-minute
+   44.1 kHz 16-bit stereo file and a 60 s 96 kHz 24-bit stereo file (made
+   from a seed) with the port's FrameEncoder on the card, counting kernel
+   launches, plan batches and graph replays (every plan and every chunk's
+   analyze a replay, no capture after the warm-up; the timed shapes must
+   account for every launch, replays included, here and in phases 6, 7,
+   10, 12 and 13, where each capture adds one eager warm-up plan and is
+   the only eager ``plan_group`` call on the card besides the capture
+   itself, every analyze and group-route lag batch on the card is a
+   replay, and the only eager ``analyze`` and ``autocorrelation`` calls on
+   the card are a capture's warm-up and the capture; each kernel's launches x
    (time - bound) per file is printed), and holds the bytes to the port's host
    route (the native planner, plane pipeline off); runs the port's CLI
    encode and decode on both and holds the decoded PCM to the input;
@@ -152,7 +155,7 @@ on every card.
     (``bench_device_pack``: (256, 16384) lanes under kernel 6's k sequence,
     every lane's bytes equal to ``pack_stream`` and the native packer) with
     their launches counted;
-15. the captured plans: every plan shape a one-card encode replays (full
+15. the captured executables: every plan shape a one-card encode replays (full
     width at K = 64, 128 and 256 with the doubled batches, the three probe
     shapes, the group route's 1024 x 256 cap), with and without
     ``emit_fields``, under each of the four flag combinations: the replay
@@ -163,7 +166,13 @@ on every card.
     replays, capture seconds, device memory with every graph held; host
     dispatch and device time of one plan eager and replayed, in turns; a
     batch's rows into the static buffer gathered then copied, or gathered
-    into it; in fresh processes, a second thread that synchronizes the card
+    into it; the analyze graphs of K = 64, 128 and 256, every kind, int16
+    and int32 planes, and the lag graphs at the group route's caps, int16
+    and int32, and on lanes out of the 24-bit domain, the same way
+    (bit-exact, a ragged input after the full one, captured beside the
+    other thread); host dispatch and device time of one auto chunk
+    analyzed eagerly at its kc rows and replayed at K = 256, in turns;
+    in fresh processes, a second thread that synchronizes the card
     during captures with ``torch.cuda.synchronize()`` (which CUDA refuses
     beside a capture) and with ``plan_graphs.synchronize()`` (which waits
     out a capture: every capture exact).
@@ -194,13 +203,16 @@ from lac_tpu_torch import HostCopy, cli, device_decode, device_pipeline, plan_gr
 from lac_tpu_torch import encoder as encoder_mod
 from lac_tpu_torch.batch import decode_batch, encode_batch
 from lac_tpu_torch.decoder import DecodeError, FrameDecoder
+from lac_tpu_torch.device_pipeline import analyze as eager_analyze
 from lac_tpu_torch.encoder import (ChannelBlockEncoder, FrameEncoder, lpc_candidates_from_lags, plan_group,
                                    plan_inputs_to_torch)
 from lac_tpu_torch.experiments import bench_device_pack, bench_device_reader
 from lac_tpu_torch.io import write_wav as write_wav_port
 from lac_tpu_torch.ops import _cuda_lib
 from lac_tpu_torch.ops import cuda_kernels as K
+from lac_tpu_torch.ops import lpc as lpc_mod
 from lac_tpu_torch.ops._backend import u32_from_bits
+from lac_tpu_torch.ops.lpc import autocorrelation as eager_lags
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
 from lac_tpu_torch.parallel import default_mesh, make_mesh, mesh as mesh_mod, plan_group_sharded
 from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo
@@ -612,7 +624,12 @@ def count_plan_batches():
     which ran one eager warm-up plan on the card first. ``plan_group``
     is wrapped where the captures call it: its calls on CUDA tensors
     count under ``"eager"`` (a capture's warm-up and the capture itself;
-    nothing else may run a plan eagerly on the card)."""
+    nothing else may run a plan eagerly on the card). Likewise the
+    analyze and lag graphs: ``"analyzed"`` and ``"lags_of"`` count the
+    chunks and lag batches on the card (``device_pipeline.analyzed``,
+    ``encoder.lags_of``), ``"eager-analyze"`` and ``"eager-lags"`` the
+    calls on CUDA tensors of what their captures run
+    (``device_pipeline.analyze``, ``ops.lpc.autocorrelation``)."""
     calls = {}
     guard = threading.Lock()  # a mesh plans from one thread per entry
     mine = threading.local()  # this thread's eager calls: a capture runs in the thread that plans
@@ -648,6 +665,21 @@ def count_plan_batches():
     wrap(device_pipeline, "pipe")
     wrap(encoder_mod, "group")
     wrap(mesh_mod, "group")
+
+    def counting(module, attr, key):
+        real = getattr(module, attr)
+
+        def counted_call(x, *args, **kwargs):
+            if x.is_cuda:
+                add(key)
+            return real(x, *args, **kwargs)
+
+        setattr(module, attr, counted_call)
+
+    counting(device_pipeline, "analyzed", "analyzed")
+    counting(encoder_mod, "lags_of", "lags_of")
+    counting(device_pipeline, "analyze", "eager-analyze")
+    counting(lpc_mod, "autocorrelation", "eager-lags")
     return calls
 
 
@@ -658,7 +690,8 @@ class Counted:
     plan batches of the stretch by kind (``plans``), the captures they
     made by kind (``captured``), and ``graphs``: ``plan_graphs.stats``'
     replays, captures and capture seconds, and the eager ``plan_group``
-    calls on the card."""
+    calls on the card; ``analyze`` and ``lags`` the same of the analyze
+    and lag graphs, with ``calls``, the chunks and batches on the card."""
 
     def __init__(self, batches, reset=True):
         self.batches, self.reset = batches, reset
@@ -667,6 +700,7 @@ class Counted:
         if self.reset:
             K.reset_launches()
         self.before = dict(K.launches), dict(self.batches), dict(plan_graphs.stats)
+        self.before_kinds = {kind: dict(plan_graphs.CACHES[kind].stats) for kind in ("analyze", "lags")}
         return self
 
     def __exit__(self, *exc):
@@ -680,6 +714,11 @@ class Counted:
         self.captured = {kind: added(("captured", kind)) for kind in PLAN_KINDS.values()}
         self.graphs = {k: v - stats[k] for k, v in plan_graphs.stats.items()}
         self.graphs["eager"] = added("eager")
+        for kind, calls in (("analyze", "analyzed"), ("lags", "lags_of")):
+            before = self.before_kinds[kind]
+            got = {k: v - before[k] for k, v in plan_graphs.CACHES[kind].stats.items()}
+            got.update(calls=added(calls), eager=added(f"eager-{kind}"))
+            setattr(self, kind, got)
 
 
 def check_accounting(label, shapes, c):
@@ -701,6 +740,11 @@ def check_accounting(label, shapes, c):
           and g["eager"] == 2 * g["captures"],
           f"{label}: plans {c.plans}, captures {c.captured}, graphs {g}: every plan on the card must be a replay, "
           f"and every eager plan_group call on the card a capture's warm-up or the capture")
+    for kind in ("analyze", "lags"):
+        a = getattr(c, kind)
+        check(a["replays"] == a["calls"] and a["eager"] == 2 * a["captures"],
+              f"{label}: {kind} graphs {a}: every {kind} on the card must be a replay, and every eager call on the "
+              f"card a capture's warm-up or the capture")
     return model
 
 
@@ -2644,9 +2688,140 @@ def check_graphs(batches):
         times[k].append(time_ms(ways[k], None))
     print("  a (256, 16384) batch into the static buffer from (1024, 16384) planes (CUDA graph of 20, in turns): "
           + "; ".join(f"{k} {min(t):.4f} ms" for k, t in times.items()))
+    check_analyze_graphs()
     check_sync_during_capture()
-    print(f"phase 15 (the captured plans): {time.perf_counter() - t15:.1f} s")
+    print(f"phase 15 (the captured plans, analyzes and lags): {time.perf_counter() - t15:.1f} s")
     return c.launches
+
+
+ANALYZE_WIDTHS = (64, 128, 256)  # the chunk widths of CHUNK_LADDER
+ANALYZE_KINDS = ("mono", "lr", "ms", "auto")
+
+
+def analyze_inputs(dtype, seed):
+    """(256, 16384) L and R planes of ``dtype`` on card 0: gliding sines
+    and filtered noise (16-bit content at 44.1 kHz for int16, 24-bit at
+    96 kHz for int32), silent blocks and the type's extremes."""
+    rate, depth = (44100, 16) if dtype == torch.int16 else (96000, 24)
+    hi = (1 << (depth - 1)) - 1
+    K = ANALYZE_WIDTHS[-1]
+    sines, noise = (fn(K * BLOCK, rate, depth, seed) for fn in (gliding_stereo, filtered_noise_stereo))
+    odd = (np.arange(K) % 3 == 2)[:, None]
+    alt = np.where(np.arange(BLOCK) % 2, hi, -hi - 1)
+    planes = []
+    for c in (0, 1):
+        m = np.where(odd, noise[c].reshape(K, BLOCK), sines[c].reshape(K, BLOCK))
+        m[5::8] = 0
+        m[7::16] = alt if c == 0 else -alt - 1
+        planes.append(torch.from_numpy(m.astype(np.int16 if depth == 16 else np.int32)).cuda())
+    return planes
+
+
+def padded(m, K):
+    """``m`` (kc, n) with K - kc rows of zeros below it."""
+    return torch.cat([m, m.new_zeros((K - m.shape[0], m.shape[1]))])
+
+
+def check_analyze_graphs():
+    """Phase 15, the analyze and lag graphs: every analyze graph a one-card
+    encode replays (K = 64, 128 and 256, the four kinds, int16 and int32
+    planes) and the group route's lag graphs at its caps, int16 and int32,
+    each held bit-exact against its eager function on the same inputs,
+    then a ragged input on the same graph against the eager function on
+    the zero-padded input, with the rows the full input left zeroed; an
+    out-of-domain int32 batch on the int32 lag graph; captured while
+    another thread uses the card. Captures, replays, capture seconds and
+    memory with the graphs held; host dispatch and device time of one auto
+    chunk analyzed eagerly at its kc rows (the parent's way) and replayed
+    at K, in turns."""
+    plan_graphs.release()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    inputs = {dt: analyze_inputs(dt, 30 + i) for i, dt in enumerate((torch.int16, torch.int32))}
+    analyze_cache, lag_cache = plan_graphs.CACHES["analyze"], plan_graphs.CACHES["lags"]
+    s0 = {kind: dict(plan_graphs.CACHES[kind].stats) for kind in ("analyze", "lags")}
+    noise = CardNoise()
+    noise.start()
+    try:
+        for dt, (lm, rm) in inputs.items():
+            for K in ANALYZE_WIDTHS:
+                kc = K * 3 // 8 + 1
+                for kind in ANALYZE_KINDS:
+                    label = f"analyze graph (K={K}, {kind}, {dt})"
+                    want = eager_analyze(lm[:K], rm[:K], kind)
+                    got = plan_graphs.analyzed(lm[:K], rm[:K], K, kind)
+                    check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+                          f"{label}: the replay differs from analyze")
+                    ragged = plan_graphs.analyzed(lm[:kc], rm[:kc], K, kind)
+                    want = eager_analyze(padded(lm[:kc], K), padded(rm[:kc], K), kind)
+                    check(all(torch.equal(ragged[k], want[k]) for k in want),
+                          f"{label}: a ragged chunk of {kc} after the full one differs from analyze, zero-padded")
+                    static, captured = analyze_cache.entries[(0, K, kind, dt)]
+                    check(not static.lmat[kc:].any() and (kind == "mono" or not static.rmat[kc:].any()),
+                          f"{label}: rows {kc}.. of the full chunk were carried into the ragged one")
+                    check(not captured.launches, f"{label}: analyze launched the port's kernels {captured.launches}")
+        t_lags = time.perf_counter()
+        for rows, n in ((GROUP_LANES, BLOCK), (GROUP_PROBE_LANES, 256)):
+            for dt, (lm, _) in inputs.items():
+                pcm = lm.reshape(-1)[: rows * n].reshape(rows, n)
+                nsub = rows * 3 // 8 + 1
+                label = f"lag graph ({rows}, {n}, {dt})"
+                check(torch.equal(plan_graphs.lags_of(pcm, rows), eager_lags(pcm, 12)),
+                      f"{label}: the replay differs from autocorrelation")
+                check(torch.equal(plan_graphs.lags_of(pcm[:nsub], rows), eager_lags(pcm[:nsub], 12)),
+                      f"{label}: a ragged batch of {nsub} after the full one differs from autocorrelation")
+                check(not lag_cache.entries[(0, rows, n, dt)][0].pcm[nsub:].any(),
+                      f"{label}: rows {nsub}.. of the full batch were carried into the ragged one")
+        ood = torch.from_numpy(np.concatenate([pcm for _, pcm in out_of_domain_groups()])).cuda()
+        check(torch.equal(plan_graphs.lags_of(ood, GROUP_LANES), eager_lags(ood, 12)),
+              f"lag graph ({GROUP_LANES}, {BLOCK}, int32): {len(ood)} lanes out of the 24-bit domain differ")
+        lag_s = time.perf_counter() - t_lags
+    finally:
+        noise.stop.set()
+        noise.join()
+    if noise.failure is not None:
+        raise noise.failure
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    got = {kind: {k: plan_graphs.CACHES[kind].stats[k] - s0[kind][k] for k in s0[kind]} for kind in s0}
+    keys = len(inputs) * len(ANALYZE_WIDTHS) * len(ANALYZE_KINDS)
+    check(got["analyze"]["captures"] == keys and got["analyze"]["replays"] == 2 * keys,
+          f"phase 15: want {keys} analyze captures and {2 * keys} replays, got {got['analyze']}")
+    check(len(plan_graphs.captured_keys("analyze")) == plan_graphs.MAX_ANALYZE_GRAPHS,
+          f"phase 15: {len(plan_graphs.captured_keys('analyze'))} analyze graphs held, want the bound's 16")
+    check(got["lags"]["captures"] == 4 and got["lags"]["replays"] == 9, f"phase 15: lag graphs {got['lags']}")
+    print(f"analyze graphs: {keys} (K x kind x plane dtype) captured, each replay bit-exact against analyze and a "
+          f"ragged chunk after the full one exact with the stale rows zeroed, none launching a kernel; "
+          f"{got['analyze']['captures']} captures in {got['analyze']['capture_s']:.2f} s, "
+          f"{got['analyze']['replays']} replays, {len(plan_graphs.captured_keys('analyze'))} held (the bound); lag "
+          f"graphs at the group caps, int16 and int32, the same way, and {len(ood)} lanes out of the 24-bit domain: "
+          f"{got['lags']['captures']} captures in {got['lags']['capture_s']:.2f} s, {got['lags']['replays']} "
+          f"replays ({lag_s:.2f} s); another thread used the card meanwhile ({noise.rounds} rounds)")
+    print(f"  device memory: {gib(reserved0)} reserved before (the plan graphs dropped), {gib(reserved)} with these "
+          f"graphs held; most reserved meanwhile {gib(torch.cuda.max_memory_reserved())}")
+
+    # one auto chunk: analyze eagerly at its kc rows (the parent's way) against the K = 256 graph's replay
+    for dt, kcs in ((torch.int16, (256, 228)), (torch.int32, (256, 95))):
+        lm, rm = inputs[dt]
+        for kc in kcs:
+            rec = {"eager": [], "replay": []}
+            for name in ("eager", "replay", "replay", "eager") * 3:
+                fn = (lambda: eager_analyze(lm[:kc], rm[:kc], "auto")) if name == "eager" else (
+                    lambda: plan_graphs.analyzed(lm[:kc], rm[:kc], 256, "auto"))
+                torch.cuda.synchronize()
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                fn()
+                host = time.perf_counter() - t0
+                stop.record()
+                torch.cuda.synchronize()
+                rec[name].append((host * 1e3, start.elapsed_time(stop)))
+            txt = "; ".join(f"{name} host dispatch {statistics.median(h for h, _ in r):.3f} ms, device "
+                            f"{statistics.median(d for _, d in r):.3f} ms" for name, r in rec.items())
+            print(f"  one auto chunk of {kc} blocks, {dt} planes, eager at {kc} rows against the K = 256 graph, "
+                  f"median of 6 in turns: {txt}")
 
 
 def main():
@@ -2728,14 +2903,20 @@ def main():
     batches = count_plan_batches()
     # the warm-up a service process runs (serve.warm_process): the build, then on the card the plan graphs an
     # encode of up to the 3-minute file's 484 full blocks replays, then a synthetic encode
-    s0 = dict(plan_graphs.stats)
-    _, warm_s, _ = timed_on_card(lambda: serve.warm_process(FILES[0][3] // BLOCK, device="cuda"))
-    warmed = {k: plan_graphs.stats[k] - s0[k] for k in s0}
+    with Counted(batches) as w:
+        _, warm_s, _ = timed_on_card(lambda: serve.warm_process(FILES[0][3] // BLOCK, device="cuda"))
+    warmed = w.graphs
     print(f"warm-up (serve.warm_process({FILES[0][3] // BLOCK})): {warm_s:.2f} s; {warmed['captures']} plan graphs "
-          f"captured in {warmed['capture_s']:.2f} s, {warmed['replays']} replays; graphs held "
-          f"{[k[1:3] for k in plan_graphs.captured_keys()]}; device memory reserved "
-          f"{gib(torch.cuda.memory_reserved())}")
+          f"captured in {warmed['capture_s']:.2f} s, {warmed['replays']} replays; {w.analyze['captures']} analyze "
+          f"graphs in {w.analyze['capture_s']:.2f} s and {w.lags['captures']} lag graphs in "
+          f"{w.lags['capture_s']:.2f} s; graphs held {[k[1:3] for k in plan_graphs.captured_keys()]}, analyze "
+          f"{[k[1:] for k in plan_graphs.captured_keys('analyze')]}, lags "
+          f"{[k[1:] for k in plan_graphs.captured_keys('lags')]}; device memory reserved "
+          f"{gib(torch.cuda.memory_reserved())}, most reserved during the warm-up "
+          f"{gib(torch.cuda.max_memory_reserved())}")
     check(warmed["captures"] >= 7, f"the warm-up captured {warmed['captures']} plan graphs, want the grid's 7")
+    check(w.analyze["captures"] >= 3 and w.lags["captures"] >= 2,
+          f"the warm-up captured {w.analyze} analyze and {w.lags} lag graphs, want the grid's 3 and 2")
     K.reset_launches()
     per_file, counted = [], []
     for (label, sr, depth, (left, right)), ref in zip(audio, refs):
@@ -2746,13 +2927,21 @@ def main():
         check(got == ref, f"{label}: port bytes differ from the port's host route")
         check(c.graphs["captures"] == 0, f"{label}: after the warm-up every plan must replay a graph of the "
                                          f"grid, but {c.graphs['captures']} were captured: {c.captured}")
+        # the grid holds the auto analyze of 16-bit planes, as lac_tpu's warms int16 alone
+        # (lac_tpu/serve.py:242-272): 24-bit planes capture their one int32 graph (K = 256) here
+        fresh = 0 if depth == 16 else 1
+        check(c.analyze["captures"] == fresh and c.lags["captures"] == 0 and c.analyze["replays"] > 0,
+              f"{label}: after the warm-up the analyze graphs of {depth}-bit planes must capture {fresh}: "
+              f"{c.analyze}, lags {c.lags}")
     launches = dict(K.launches)
     # the group route plans the lanes of the tail blocks (an uncertain tail's probe lanes)
     full = sum(c.plans["full"] + c.plans["group-full"] for c in counted)
     probe = sum(c.plans["probe"] + c.plans["group-probe"] for c in counted)
     replays = sum(c.graphs["replays"] for c in counted)
-    print(f"main path: {full} full-width and {probe} probe plan batches, {replays} graph replays and no capture; "
-          f"launches {launches}")
+    analyzes = sum(c.analyze["replays"] for c in counted)
+    print(f"main path: {full} full-width and {probe} probe plan batches, {replays} plan graph replays and "
+          f"{analyzes} analyze graph replays (one a chunk), no plan capture, the 24-bit file's int32 analyze "
+          f"graph its one capture; launches {launches}")
     check(all(launches[k] > 0 for k in ENCODE_KERNELS), f"a kernel of the path never launched: {launches}")
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,

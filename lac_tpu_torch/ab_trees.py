@@ -12,6 +12,7 @@ then ``N`` times warm, on one card (``LAC_TPU_MESH=0``; with
 ``LAC_TPU_COLD_BLOCKS=0`` no input takes the cold route's host route):
 
 * the 3-minute 44.1 kHz 16-bit stereo file, ``FrameEncoder.encode``;
+* the 60 s 96 kHz 24-bit stereo file, the same way;
 * the clip batch (84 stereo clips, the one ``chip_smoke.py`` makes),
   ``pool.encode_pooled``;
 * the same clips through ``batch.encode_batch(max_workers=4)``;
@@ -51,6 +52,7 @@ with ThreadPoolExecutor(8) as ex:
     clips = list(ex.map(lambda i: (filtered_noise_stereo if i % 3 == 2 else gliding_stereo)(
         frames[i], 44100, 16, 1000 + i), range(len(frames))))
 left, right = gliding_stereo(7_938_000, 44100, 16, 1)
+hi_left, hi_right = gliding_stereo(5_760_000, 96000, 24, 2)
 
 
 class Wire:
@@ -97,6 +99,7 @@ def timed(fn):
 
 work = {
     "3-minute file": lambda: timed(lambda: [FrameEncoder(12, 2, 44100, 16).encode(left, right)]),
+    "60 s 96 kHz 24-bit file": lambda: timed(lambda: [FrameEncoder(12, 2, 96000, 24).encode(hi_left, hi_right)]),
     "clips pooled": lambda: timed(lambda: encode_pooled(clips, 44100, 16)),
     "clips, encode_batch 4 threads": lambda: timed(lambda: encode_batch(clips, 44100, 16, max_workers=4)),
     "clips served, --workers=4": served,

@@ -39,7 +39,7 @@ from .ops._backend import shift_right, u32_from_bits
 from .ops.cuda_kernels import k_cost_partition_sums, k_cost_sums
 from .ops.stereo import estimate_stereo_mode, estimate_stereo_mode_host, ms_transform_host
 from .parallel.mesh import make_mesh
-from .plan_graphs import planned
+from .plan_graphs import lags_of, planned
 from .runtime import native
 from .utils import debug as _dbg
 from .utils.debug import debug_log
@@ -516,7 +516,8 @@ class _GroupJob:
     packing across groups (lac_tpu/encoder.py:630-840):
 
     1. ``dispatch_autocorr``: upload the PCM (int16 for 16-bit content)
-       and fetch its exact lags;
+       and fetch its exact lags, a replay of the captured lags of the
+       padded batch (:func:`.plan_graphs.lags_of`);
     2. ``dispatch_plan``: the host's 80-bit Levinson-Durbin on the lags,
        then the plan queued on the device as a replay of the captured
        ``plan_group`` of the padded batch (:func:`.plan_graphs.planned`),
@@ -558,12 +559,13 @@ class _GroupJob:
             pcm_pad = np.zeros((self.Bp, n), np.int16 if small else np.int32)
             pcm_pad[:B] = self.pcm_np
             self.pcm_pad = pcm_pad  # a mesh's shards (plan_group_sharded)
-            self.pcm_dev = upload(pcm_pad[:B], dev)  # planned pads it on the card
+            self.pcm_dev = upload(pcm_pad[:B], dev)  # lags_of and planned pad it on the card
         self.need_lpc = any(c <= _max_valid_order(n) for c in C.LPC_ORDER_CANDIDATES)
         if self.need_lpc:
-            # exact int64 lags on the device; the LD that needs them is next
+            # exact int64 lags of the padded batch on the device (lac_tpu/encoder.py:685-692);
+            # the LD that needs them is next
             with _dbg.phase("autocorr_fetch", dev):
-                self.R_np = lpc.autocorrelation(self.pcm_dev, 12).cpu().numpy()[:B]
+                self.R_np = lags_of(self.pcm_dev, self.Bp).cpu().numpy()
         if dev.type == "cuda":
             device_pipeline.mark_warm()  # this process now uses the card
 

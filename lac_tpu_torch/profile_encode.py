@@ -19,8 +19,13 @@ prints, beside the card's name and power limit:
   a dispatch thread of its own), the torch operators each call issues
   with the kernel and graph launches among them (``cudaLaunchKernel``
   and ``cudaGraphLaunch`` calls);
+* for each chunk's analyze (``device_pipeline.analyzed``, a replay of
+  the chunk's analyze graph; ``analyze``, eager, in an older checkout):
+  its blocks, the host time spent issuing it and its device time (CUDA
+  events around the call on the dispatch thread's stream), each call
+  under a ``record_function("analyze")`` range;
 * peak device memory over one warm encode, allocated and reserved (the
-  plan graphs' pool is reserved, and only in part allocated);
+  graphs' pool is reserved, and only in part allocated);
 * device busy: the union of device-activity intervals over the
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
   device time and launch count of each of the six kernels, by the name
@@ -35,10 +40,11 @@ visible, else N stand-ins that take the visible cards in turn (two on
 one card share it). Device busy, device time and the port's kernel
 launches are then also printed per card.
 
-The script runs on a checkout whose plane pipeline plans eagerly (no
-``plan_graphs``) too: copied into an older checkout's package, it times
-that checkout's ``plan_group`` calls the same way, for turns against a
-parent commit.
+The script runs on a checkout whose plane pipeline plans or analyzes
+eagerly too: copied into an older checkout's package, it times that
+checkout's ``plan_group`` and ``analyze`` calls the same way, for turns
+against a parent commit. The wrappers exist only in this script: an
+encode outside it pays nothing for them.
 """
 
 import argparse
@@ -230,11 +236,28 @@ def main(argv=None):
             host_s.setdefault(n, []).append(time.perf_counter() - t0)
         return out
 
+    an_attr = "analyzed" if hasattr(device_pipeline, "analyzed") else "analyze"
+    analyze = getattr(device_pipeline, an_attr)
+    chunks = []
+
+    def timed_analyze(lmat, *rest, **kwargs):
+        with torch.profiler.record_function("analyze"):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = analyze(lmat, *rest, **kwargs)
+            host = time.perf_counter() - t0
+            stop.record()
+        chunks.append((lmat.shape[0], host, start, stop))
+        return out
+
     setattr(device_pipeline, attr, timed)
+    setattr(device_pipeline, an_attr, timed_analyze)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     try:
         encode()
         dispatch = {n: list(t) for n, t in host_s.items()}
+        per_chunk = [(kc, host * 1e3, start.elapsed_time(stop)) for kc, host, start, stop in chunks]
         stats0 = dict(plan_graphs.stats) if plan_graphs else None
         cuda_kernels.reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
@@ -242,6 +265,7 @@ def main(argv=None):
                 wall = encode()
     finally:
         setattr(device_pipeline, attr, plan)
+        setattr(device_pipeline, an_attr, analyze)
     if plan_graphs:
         print(f"plan graphs in the profiled encode: {plan_graphs.stats['replays'] - stats0['replays']} replays, "
               f"{plan_graphs.stats['captures'] - stats0['captures']} captures")
@@ -250,7 +274,7 @@ def main(argv=None):
     # only kernels and copies as device activity
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges_of = {e.name for e in events if e.name == "encode" or e.name.startswith("plan_group[")}
+    ranges_of = {e.name for e in events if e.name in ("encode", "analyze") or e.name.startswith("plan_group[")}
 
     def launches(ev, name):
         return sum(launches(c, name) for c in ev.cpu_children) + ev.name.startswith(name)
@@ -266,6 +290,11 @@ def main(argv=None):
                if ranges else "")
         print(f"plan_group {label} (n={n}): {len(dispatch[n])} calls, host dispatch {sum(dispatch[n]) * 1e3:.1f} ms "
               f"in all, {statistics.mean(dispatch[n]) * 1e3:.2f} ms per call (an encode without the profiler){ops}")
+    how = "a replay of its graph" if an_attr == "analyzed" else "eager"
+    print(f"analyze ({how}), {len(per_chunk)} chunks (an encode without the profiler): host dispatch "
+          f"{sum(h for _, h, _ in per_chunk):.2f} ms in all, device {sum(d for *_, d in per_chunk):.3f} ms in all; "
+          f"per chunk (blocks, host ms, device ms): "
+          + "; ".join(f"{kc} {h:.3f} {d:.3f}" for kc, h, d in per_chunk))
     enc_range = next(e for e in events if e.name == "encode" and e.device_type == cpu)
     lo, hi = enc_range.time_range.start, enc_range.time_range.end
     dev = [(max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events

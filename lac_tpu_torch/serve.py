@@ -139,6 +139,18 @@ def run_job(argv, device="cuda"):
     return rc, out_buf.getvalue(), err_buf.getvalue()
 
 
+def _chunk_widths(blocks):
+    """The chunk widths that an encode of at most ``blocks`` full blocks
+    may take: every width of ``CHUNK_LADDER`` up to its own (a pinned
+    ``CHUNK_BLOCKS`` alone)."""
+    from . import device_pipeline as DP
+
+    if DP.CHUNK_BLOCKS:
+        return (DP.CHUNK_BLOCKS,)
+    top = DP.chunk_width(max(int(blocks), 1))
+    return tuple(k for k in DP.CHUNK_LADDER if k <= top)
+
+
 def warm_plan_shapes(blocks, mesh_size=1, emit_fields=False):
     """The plan shapes ``(rows, n, emit_fields)`` that an encode of at most
     ``blocks`` full blocks replays on each card, in the order of
@@ -153,10 +165,8 @@ def warm_plan_shapes(blocks, mesh_size=1, emit_fields=False):
     from .encoder import ChannelBlockEncoder
     from .format import constants as C
 
-    top = DP.chunk_width(max(int(blocks), 1))
-    widths = (DP.CHUNK_BLOCKS,) if DP.CHUNK_BLOCKS else tuple(k for k in DP.CHUNK_LADDER if k <= top)
     shapes = []
-    for k in widths:
+    for k in _chunk_widths(blocks):
         for bp in (k, 2 * k) if 2 * k in DP.CHUNK_LADDER else (k,):
             shapes.append((bp, DP.N, False))
         shapes.append((12 * k, DP.PROBE, False))
@@ -167,11 +177,32 @@ def warm_plan_shapes(blocks, mesh_size=1, emit_fields=False):
     return list(dict.fromkeys(shapes))
 
 
+def warm_analyze_shapes(blocks, mesh_size=1):
+    """The analyze and lag graphs that an encode of at most ``blocks``
+    full blocks replays on a card, as ``("analyze", K, kind, dtype)`` and
+    ``("lags", rows, n, dtype)``: the plane pipeline's ``auto`` analyze of
+    16-bit planes at every chunk width that :func:`warm_plan_shapes`
+    warms (lac_tpu/serve.py:242-272 warms these through its probe chain),
+    then the group route's lags of 16-bit lanes at its caps. The group
+    route computes a batch's lags whole on the mesh's first card and
+    splits only its plan, so a lag batch is the cap padded to a multiple
+    of ``mesh_size`` (``_GroupJob``'s padding), not a shard of it."""
+    from .encoder import ChannelBlockEncoder
+    from .format import constants as C
+
+    shapes = [("analyze", k, "auto", "int16") for k in _chunk_widths(blocks)]
+    group = ChannelBlockEncoder(device="cpu")
+    for n in (C.MAX_BLOCK_SIZE, C.STEREO_PROBE_SIZE):
+        shapes.append(("lags", -(-group._batch_cap(n) // mesh_size) * mesh_size, n, "int16"))
+    return shapes
+
+
 def warm_process(blocks=128, device="cuda"):
     """Make this process ready for jobs on ``device`` now: build the
     native runtime and, on the card, the kernels (at once), capture on
-    every card of the default mesh the plans an encode of up to
-    ``blocks`` full blocks replays (:func:`warm_plan_shapes`), then encode
+    every card of the default mesh the plans, analyzes and lags an encode
+    of up to ``blocks`` full blocks replays (:func:`warm_plan_shapes`,
+    :func:`warm_analyze_shapes`), then encode
     a synthetic stereo signal of ``blocks`` full blocks and a tail in
     memory, on the mesh (the reference's signal, so the byte count
     equals ``lac_tpu.serve.warm_process``'s). Returns that count.
@@ -182,7 +213,7 @@ def warm_process(blocks=128, device="cuda"):
     from .encoder import FrameEncoder
     from .format import constants as C
     from .parallel import default_mesh
-    from .plan_graphs import planned
+    from .plan_graphs import analyzed, lags_of, planned
     from .runtime import native
 
     dbg = os.environ.get("LAC_TPU_WARM_DEBUG") == "1"
@@ -207,18 +238,25 @@ def warm_process(blocks=128, device="cuda"):
     _stage("build")
     device = resolve_device(device)
     mesh = default_mesh() if device.type == "cuda" else None
-    if device.type == "cuda":  # every card's context and its plan graphs, captured on zero batches
+    if device.type == "cuda":  # every card's context and its graphs, captured on zero inputs
         import torch
 
         cards = list(dict.fromkeys(mesh)) if mesh is not None else [device]
+        mesh_size = len(mesh) if mesh is not None else 1
         ncl = len(C.LPC_ORDER_CANDIDATES)
-        for rows, n, emit in warm_plan_shapes(blocks, len(mesh) if mesh is not None else 1,
-                                              emit_fields=not native.native_available()):
+        for rows, n, emit in warm_plan_shapes(blocks, mesh_size, emit_fields=not native.native_available()):
             for card in cards:
                 planned(torch.zeros((rows, n), dtype=torch.int32, device=card),
                         torch.zeros((ncl, rows, 13), dtype=torch.int16, device=card),
                         torch.zeros((ncl, rows), dtype=torch.bool, device=card), n, True, True,
                         emit_fields=emit, rows=rows)
+        for what, rows, arg, dtype in warm_analyze_shapes(blocks, mesh_size):
+            for card in cards:
+                if what == "analyze":
+                    planes = torch.zeros((rows, device_pipeline.N), dtype=getattr(torch, dtype), device=card)
+                    analyzed(planes, planes, rows, arg)
+                else:
+                    lags_of(torch.zeros((rows, arg), dtype=getattr(torch, dtype), device=card), rows)
     _stage("graphs")
     # full blocks take the plane pipeline (from device_pipeline.MIN_FULL_BLOCKS
     # on), the tail just under a full block the host route

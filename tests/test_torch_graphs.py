@@ -1,7 +1,9 @@
-"""The port's captured plans (``lac_tpu_torch.plan_graphs``) on the CPU.
+"""The port's captured executables (``lac_tpu_torch.plan_graphs``) on
+the CPU: plans, and since the analyze and lag graphs joined them, the
+cache of every kind.
 
 A CUDA graph runs only on the card, where ``chip_smoke.py`` phase 15
-holds every captured shape bit-exact against eager ``plan_group``. Here:
+holds every captured shape bit-exact against the eager function. Here:
 
 * ``planned`` on CPU tensors against ``lac_tpu``'s ``_jitted_plan``
   called the way ``lac_tpu/device_pipeline.py:786-800`` calls it: a
@@ -12,9 +14,11 @@ holds every captured shape bit-exact against eager ``plan_group``. Here:
   earlier batch left behind zeroed;
 * the graph cache with a stand-in for the capture that runs on the CPU:
   its keys, its bound, the copy-out, the replay accounting, and a failed
-  capture that raises and caches nothing;
+  capture that raises and caches nothing; the same for analyze and lag
+  graphs, whose caches keep apart, each bounded per card, with outputs
+  that outlive another graph's replay in the same pool;
 * the padded shapes that the plane pipeline, the group route and the
-  warm-up ask for.
+  warm-up ask for (``warm_plan_shapes``, ``warm_analyze_shapes``).
 """
 
 import numpy as np
@@ -26,7 +30,7 @@ from lac_tpu import encoder as ref_enc  # noqa: E402
 from lac_tpu.ops import lpc as ref_lpc  # noqa: E402
 from lac_tpu_torch import device_pipeline, encoder, plan_graphs, serve  # noqa: E402
 from lac_tpu_torch.encoder import ChannelBlockEncoder, FrameEncoder, plan_group, plan_inputs_to_torch  # noqa: E402
-from lac_tpu_torch.ops import cuda_kernels  # noqa: E402
+from lac_tpu_torch.ops import cuda_kernels, lpc  # noqa: E402
 from lac_tpu_torch.profile_encode import gliding_stereo  # noqa: E402
 
 N = 16384
@@ -341,3 +345,211 @@ def test_warm_grid_shapes():
     assert serve.warm_plan_shapes(8) == [(64, N, False), (128, N, False), (768, 256, False), (1024, 256, False)]
     assert serve.warm_plan_shapes(8, mesh_size=4, emit_fields=True) == [
         (64, N, False), (128, N, False), (768, 256, False), (32, N, True), (256, 256, True)]
+
+
+# ------------------------------------------------------------------ analyze and lag graphs
+
+
+def _stand_in_of(run_of, log, fail=False, pool=None):
+    """A capture of any kind that runs on the CPU: ``run_of(static, *key)``
+    gives the eager outputs, ``replay`` copies a fresh run into the
+    captured ones. With ``pool`` (a list) every graph writes its outputs
+    into the same tensors, as graphs that share a card's pool may."""
+
+    def capture(static, *key):
+        log.append(key)
+        if fail:
+            raise RuntimeError("capture failed")
+        out = run_of(static, *key)
+        if pool is not None:
+            if not pool:
+                pool.extend(t.clone() for t in out)
+            out = tuple(p.view(-1)[: t.numel()].view(t.shape) for p, t in zip(pool, out))
+
+        def replay():
+            for o, fresh in zip(out, run_of(static, *key)):
+                o.copy_(fresh)
+
+        replay()
+        return plan_graphs.Captured(replay, out, {})
+
+    return capture
+
+
+def _analyze_run(static, kind, dtype):
+    return plan_graphs._analyze_static(static, kind)
+
+
+def _lags_run(static, n, dtype):
+    return (_eager_lags(static.pcm),)
+
+
+def _eager_lags(pcm):
+    return lpc.autocorrelation(pcm, 12)
+
+
+def _chunk(kc, seed, dtype=np.int16):
+    rng = np.random.RandomState(seed)
+    left = rng.randint(-3000, 3000, (kc, N)).astype(dtype)
+    right = (left // 2 + rng.randint(-50, 50, (kc, N))).astype(dtype)
+    return torch.from_numpy(left), torch.from_numpy(right)
+
+
+def _eager_analyze(lmat, rmat, K, kind):
+    """``device_pipeline.analyze`` of the chunk zero-padded to K rows."""
+    pad = [torch.cat([m, torch.zeros((K - m.shape[0], N), dtype=m.dtype)]) for m in (lmat, rmat)]
+    return device_pipeline.analyze(*pad, kind)
+
+
+def test_one_capture_per_analyze_key_then_replays():
+    log = []
+    cache = plan_graphs.GraphCache(_stand_in_of(_analyze_run, log), plan_graphs.MAX_ANALYZE_GRAPHS)
+    for kc, seed in ((4, 1), (2, 2), (4, 3)):
+        lmat, rmat = _chunk(kc, seed)
+        got = cache.analyze(lmat, rmat, 4, "auto")
+        want = _eager_analyze(lmat, rmat, 4, "auto")
+        assert set(got) == set(want) == set(plan_graphs.ANALYZE_OUT)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert log == [("auto", torch.int16)]
+    assert list(cache.entries) == [(None, 4, "auto", torch.int16)]
+    assert cache.stats["captures"] == 1 and cache.stats["replays"] == 3
+
+
+def test_analyze_keys_tell_width_kind_and_dtype_apart():
+    log = []
+    cache = plan_graphs.GraphCache(_stand_in_of(_analyze_run, log), plan_graphs.MAX_ANALYZE_GRAPHS)
+    lmat, rmat = _chunk(2, 4)
+    calls = [(4, "auto", np.int16), (2, "auto", np.int16), (4, "mono", np.int16), (4, "lr", np.int16),
+             (4, "ms", np.int16), (4, "auto", np.int32), (4, "auto", np.int16)]
+    for K, kind, dt in calls:
+        lm, rm = (m.to(getattr(torch, np.dtype(dt).name)) for m in (lmat, rmat))
+        got = cache.analyze(lm, rm, K, kind)
+        want = _eager_analyze(lm, rm, K, kind)
+        assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert len(log) == 6 and cache.stats["replays"] == 7
+    assert list(cache.entries)[-1] == (None, 4, "auto", torch.int16)
+
+
+def test_one_capture_per_lag_key_then_replays():
+    log = []
+    cache = plan_graphs.GraphCache(_stand_in_of(_lags_run, log), plan_graphs.MAX_LAG_GRAPHS)
+    rng = np.random.RandomState(5)
+    for B, dt in ((7, np.int16), (3, np.int16), (7, np.int32), (8, np.int16)):
+        pcm = torch.from_numpy(rng.randint(-3000, 3000, (B, 256)).astype(dt))
+        got = cache.lags(pcm, 8)
+        assert torch.equal(got, _eager_lags(pcm)) and got.shape == (B, 13)
+    assert log == [(256, torch.int16), (256, torch.int32)]
+    assert cache.stats["captures"] == 2 and cache.stats["replays"] == 4
+
+
+def test_kinds_do_not_evict_each_other_and_share_one_lock():
+    """Each kind has a cache of its own, under the one lock that serialises
+    a card's replays."""
+    caches = plan_graphs.CACHES
+    assert set(caches) == {"plan", "analyze", "lags"}
+    assert len({id(c.lock) for c in caches.values()}) == 1
+    assert (caches["plan"].maxsize, caches["analyze"].maxsize, caches["lags"].maxsize) == (64, 16, 16)
+    assert plan_graphs.stats is caches["plan"].stats and plan_graphs._CACHE is caches["plan"]
+    lock = plan_graphs.threading.RLock()
+    plan = plan_graphs.GraphCache(_stand_in([]), maxsize=1, lock=lock)
+    analyze = plan_graphs.GraphCache(_stand_in_of(_analyze_run, []), maxsize=1, lock=lock)
+    lags = plan_graphs.GraphCache(_stand_in_of(_lags_run, []), maxsize=1, lock=lock)
+    pcm, ct, vt = _probe_batch(4, 10)
+    plan.plan(pcm, ct, vt, 256, True, True, rows=4)
+    analyze.analyze(*_chunk(2, 11), 2, "lr")
+    lags.lags(pcm, 4)
+    assert [len(c.entries) for c in (plan, analyze, lags)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("maxsize", [plan_graphs.MAX_ANALYZE_GRAPHS, 2])
+def test_the_bound_counts_each_card_apart(maxsize):
+    """maxsize + 1 keys on each of two cards: each card drops its own
+    oldest graph, and the other card's stay."""
+    log = []
+    cache = plan_graphs.GraphCache(_stand_in_of(lambda static, *key: (static.pcm.sum(1),), log), maxsize)
+    pcm = torch.ones((2, 8), dtype=torch.int32)
+    for i in range(maxsize + 1):
+        for card in (0, 1):
+            out = cache.run((card, i), lambda: plan_graphs.lag_buffers(4, 8, torch.int32, CPU), (pcm,), 2, CPU)
+            assert torch.equal(out[0], torch.full((2,), 8))
+    assert len(log) == 2 * (maxsize + 1)
+    assert sorted(cache.entries) == sorted((card, i) for card in (0, 1) for i in range(1, maxsize + 1))
+
+
+def test_outputs_outlive_the_next_replay_of_another_graph():
+    """Graphs that share a pool write their outputs into the same memory:
+    what a caller holds is its own copy."""
+    pool = []
+    cache = plan_graphs.GraphCache(_stand_in_of(_analyze_run, [], pool=pool), plan_graphs.MAX_ANALYZE_GRAPHS)
+    first = _chunk(4, 12)
+    got1 = cache.analyze(*first, 4, "lr")
+    keep = {k: v.clone() for k, v in got1.items()}
+    second = _chunk(2, 13)
+    got2 = cache.analyze(*second, 2, "lr")  # another graph, the same pool
+    static_out = cache.entries[(None, 4, "lr", torch.int16)][1].out
+    assert not torch.equal(static_out[0][: 2 * 2], keep["planes"][: 2 * 2]), "the pool was overwritten"
+    for k in keep:
+        assert torch.equal(got1[k], keep[k])
+    want = _eager_analyze(*second, 2, "lr")
+    assert all(torch.equal(got2[k], want[k]) for k in want)
+
+
+def test_a_ragged_chunk_zeroes_the_rows_a_fuller_chunk_left():
+    cache = plan_graphs.GraphCache(_stand_in_of(_analyze_run, []), plan_graphs.MAX_ANALYZE_GRAPHS)
+    full = _chunk(4, 14)
+    cache.analyze(*full, 4, "auto")
+    ragged = _chunk(1, 15)
+    got = cache.analyze(*ragged, 4, "auto")
+    static = cache.entries[(None, 4, "auto", torch.int16)][0]
+    assert torch.equal(static.lmat[:1], ragged[0]) and not static.lmat[1:].any()
+    assert torch.equal(static.rmat[:1], ragged[1]) and not static.rmat[1:].any() and static.filled == 1
+    want = _eager_analyze(*ragged, 4, "auto")
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    mono = plan_graphs.analyze_buffers(4, "mono", torch.int32, CPU)
+    assert not hasattr(mono, "rmat") and mono.lmat.shape == (4, N) and mono.lmat.dtype == torch.int32
+
+
+@pytest.mark.parametrize("kind", ["analyze", "lags"])
+def test_a_failed_analyze_or_lag_capture_raises_and_caches_nothing(kind):
+    log = []
+    run = _analyze_run if kind == "analyze" else _lags_run
+    cache = plan_graphs.GraphCache(_stand_in_of(run, log, fail=True), 16)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            if kind == "analyze":
+                cache.analyze(*_chunk(2, 16), 4, "ms")
+            else:
+                cache.lags(torch.zeros((3, 256), dtype=torch.int16), 4)
+    assert len(log) == 2 and not cache.entries
+    assert cache.stats["captures"] == 0 and cache.stats["replays"] == 0
+
+
+@pytest.mark.parametrize("what,args", [("analyze", ((9, N), 8)), ("analyze", ((2, 255), 8)),
+                                       ("lags", ((5, 256), 4))])
+def test_an_input_that_does_not_fit_its_graph_raises(what, args):
+    cache = plan_graphs.GraphCache(_stand_in_of(_analyze_run if what == "analyze" else _lags_run, []), 16)
+    shape, rows = args
+    x = torch.zeros(shape, dtype=torch.int16)
+    with pytest.raises(ValueError, match="does not fit"):
+        cache.analyze(x, x, rows, "lr") if what == "analyze" else cache.lags(x, rows)
+
+
+def test_warm_analyze_shapes():
+    """``auto`` analyze of 16-bit planes at every chunk width that the plan
+    grid warms, then the group route's lags at its caps, whole on one
+    card (a mesh only rounds the batch up to a multiple of its size)."""
+    lags = [("lags", 128, N, "int16"), ("lags", 1024, 256, "int16")]
+    for blocks in (8, 128, 484):
+        widths = [rows for rows, n, _ in serve.warm_plan_shapes(blocks) if n == 256 and rows != 1024]
+        assert [k for _, k, _, _ in serve.warm_analyze_shapes(blocks)[:-2]] == [w // 12 for w in widths]
+    assert serve.warm_analyze_shapes(8) == [("analyze", 64, "auto", "int16")] + lags
+    assert serve.warm_analyze_shapes(128) == [("analyze", k, "auto", "int16") for k in (64, 128)] + lags
+    assert serve.warm_analyze_shapes(484) == [("analyze", k, "auto", "int16") for k in (64, 128, 256)] + lags
+    assert serve.warm_analyze_shapes(8, mesh_size=4) == serve.warm_analyze_shapes(8)
+    assert serve.warm_analyze_shapes(8, mesh_size=3)[-2:] == [("lags", 129, N, "int16"), ("lags", 1026, 256, "int16")]
+
+
+def test_warm_analyze_shapes_follow_a_pinned_chunk_width(monkeypatch):
+    monkeypatch.setattr(device_pipeline, "CHUNK_BLOCKS", 8)
+    assert serve.warm_analyze_shapes(484)[0] == ("analyze", 8, "auto", "int16")
+    assert len(serve.warm_analyze_shapes(484)) == 3
