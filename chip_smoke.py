@@ -15,7 +15,10 @@ on every card.
    card at the planner's shapes, adversarial inputs included, and times
    both at every shape the main path launches the kernel with (CUDA
    graphs between CUDA events), beside the kernel's bound and, where one
-   PyTorch call computes the same function, that call's time; checks
+   PyTorch call computes the same function, that call's time (kernels 9
+   and 10, the planner's mode costs, on the candidate stacks' and the
+   winners' operands with k = 31 rows, codes at the escape threshold and
+   zero runs of 3-5 across part edges); checks
    that ``torch.argmin`` returns the first minimum on the card (the
    planner's tie-breaks rely on it);
 4. runs a service's warm-up (``serve.warm_process``), which captures the
@@ -127,11 +130,11 @@ on every card.
     inputs cut under 8 full blocks and the clip batch's three clips under
     8 full blocks through ``FrameEncoder.encode``, which leaves their
     lanes to the host route while the native runtime is there (bytes equal
-    to ``encode_frame``'s, no plan and no launch on the card, walls in
-    turns); the same lanes through ``ChannelBlockEncoder(device="cuda")``
+    to ``encode_frame``'s, no plan and no launch on the card, one wall
+    each); the same lanes through ``ChannelBlockEncoder(device="cuda")``
     ``.encode_lanes``, bytes equal to the host route's, launches
     accounted for by the group route's timed shapes (``"group"`` in
-    ``launches_by_path``), warm walls in turns against the host route;
+    ``launches_by_path``), walls beside the host route's;
     one batch at each device cap (128 lanes of 16384, 1024 of 256) the
     same way; the 16 goldens through ``FrameEncoder.encode``;
     16384-sample lane groups outside the 24-bit domain through
@@ -161,7 +164,8 @@ on every card.
     ``emit_fields``, under each of the four flag combinations: the replay
     bit-exact against eager ``plan_group`` on the same inputs, then a
     ragged batch on the same graph, exact, with the rows the full batch
-    left zeroed; captured while another thread uses the card (kernels,
+    left zeroed; each graph launches kernel 9 once and, with partitioning,
+    kernel 10 once; captured while another thread uses the card (kernels,
     ``.item()``, host copies, pinned buffers, ``synchronize``); captures,
     replays, capture seconds, device memory with every graph held; host
     dispatch and device time of one plan eager and replayed, in turns; a
@@ -177,8 +181,9 @@ on every card.
     beside a capture) and with ``plan_graphs.synchronize()`` (which waits
     out a capture: every capture exact).
 
-Every phase raises on failure (non-zero exit, no result line). The line
-before the last is the kernel record, the last line the device record.
+Every phase raises on failure (non-zero exit, no result line) and prints
+its seconds on a line of its own. The line before the last is the
+kernel record, the last line the device record.
 Exits non-zero without a CUDA card.
 """
 
@@ -208,14 +213,14 @@ from lac_tpu_torch.encoder import (ChannelBlockEncoder, FrameEncoder, lpc_candid
                                    plan_inputs_to_torch)
 from lac_tpu_torch.experiments import bench_device_pack, bench_device_reader
 from lac_tpu_torch.io import write_wav as write_wav_port
-from lac_tpu_torch.ops import _cuda_lib
+from lac_tpu_torch.ops import _cuda_lib, adapt, runs
 from lac_tpu_torch.ops import cuda_kernels as K
 from lac_tpu_torch.ops import lpc as lpc_mod
 from lac_tpu_torch.ops._backend import u32_from_bits
 from lac_tpu_torch.ops.lpc import autocorrelation as eager_lags
 from lac_tpu_torch.ops.stereo import estimate_stereo_mode
 from lac_tpu_torch.parallel import default_mesh, make_mesh, mesh as mesh_mod, plan_group_sharded
-from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo
+from lac_tpu_torch.profile_encode import filtered_noise_stereo, gliding_stereo, plan_batch
 from lac_tpu_torch.runtime import native
 from tests.signals import cases as golden_cases
 
@@ -242,6 +247,11 @@ KERNELS = {  # name -> (source, the Pallas function it replaces)
     "recurrence_restore": ("lac_tpu_torch/csrc/restore.cu", "lac_tpu/ops/predictors.py:243 (lax.scan)"),
     "tokenize_static_rice_scan": ("lac_tpu_torch/csrc/rice_scan.cu",
                                   "lac_tpu/ops/device_reader.py:122 (lax.scan :183)"),
+    # port-added: replace XLA fusions of plan_group that eager torch runs as dozens of int64 passes
+    "mode_cost_sums": ("lac_tpu_torch/csrc/mode_costs.cu",
+                       "lac_tpu/encoder.py:113 (_mode_cost_fields with ops/runs.py:51, summed at :217-221)"),
+    "partition_cost_sums": ("lac_tpu_torch/csrc/mode_costs.cu",
+                            "lac_tpu/encoder.py:323 (the partition sweep's mode costs, :323-388)"),
 }
 RESTORE = "recurrence_restore"
 SCAN = "tokenize_static_rice_scan"
@@ -264,7 +274,19 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 #   cumsum/prefix max/suffix min: one serial op, one fix-up, amortised scans;
 #   k_after_stateful_fused: prefix sum of s (6), k_base (29), drift bias
 #     (50), flags (9), flag prefix and micro bias (18), amortised block
-#     scans (7), store (1).
+#     scans (7), store (1);
+#   mode_cost_sums, per sample: rice (q's compare, select and shift 3, the
+#     u64 sum 4), |v| (3), bin (compares and u64 selects 6), the escape
+#     threshold (3), token (compare, u64 select and add 5), the zero test
+#     (1), three u64 accumulations (6), the k hand-over and four 16-byte
+#     loads amortised (2);
+#   partition_cost_sums, per sample and order: those fields (31), u and
+#     the part's sum before the sample from the staged prefix sums (2
+#     shared loads, 2 u64 subtracts: 6), the stateless k (the first-sample
+#     test, N, its compare, M, two bit widths, the shift, the compare and
+#     the cap: 20), the part (live and next tests, start, end: 6), the two
+#     break loads and the vote (3), the prefix scan and flushes amortised
+#     (4).
 OPS_PER_ELEMENT = {
     "k_cost_sums": 35,
     "split_cumsums_u32": 8,
@@ -272,6 +294,8 @@ OPS_PER_ELEMENT = {
     "prefix_max_i32": 4,
     "suffix_min_i32": 4,
     "k_after_stateful_fused": 120,
+    "mode_cost_sums": 33,
+    "partition_cost_sums": 70,  # per sample and partition order
     # per restored sample on csrc/restore.cu's fast way, besides its taps, in
     # int32-instruction equivalents (a float64 instruction issues at half
     # that rate: 64 lanes an SM, so it counts 2): the floor and the float64
@@ -307,6 +331,11 @@ LIBRARY_CALLS = {
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def phase_seconds(label, t0):
+    """One line a phase: its seconds since ``t0``."""
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ kernel inputs
@@ -369,6 +398,53 @@ def break_indices(codes, rng, reverse):
     rand = np.arange(codes.shape[0]) % 6 < 3
     x[rand] = rng.randint(-(1 << 31), 1 << 31, (rand.sum(), n), dtype=np.int64).astype(np.int32)
     return x
+
+
+def short_runs(codes):
+    """``codes`` with every 7th row (from row 3) holding zero runs of 3, 4
+    and 5 samples across every 32-sample edge (every part edge of every
+    partition order), codes 1..8 between them."""
+    codes = codes.copy()
+    rows, n = codes.shape
+    for r in range(3, rows, 7):
+        row = (np.arange(n) % 8 + 1).astype(np.int32)
+        for edge in range(32, n, 32):
+            length = 3 + (edge // 32) % 3
+            at = edge - length // 2 - (edge // 64) % 2
+            row[at : at + length] = 0
+        codes[r] = row
+    return codes
+
+
+def mode_cost_operands(codes, rng, dev):
+    """Kernel 9's operands for u32 ``codes`` (rows, n): k_after from the
+    stateful adapter (every 7th row from row 1 all 31), initial k 0..12 (0
+    and 12 on the first two rows), every 7th row from row 4 recoded at each
+    sample's escape threshold 2^min(k + 3, 24) or one above (by the code's
+    parity), and the zero breaks of the final codes (kernels 4 and 5)."""
+    rows = len(codes)
+    x = torch.from_numpy(np.ascontiguousarray(short_runs(codes))).to(dev)
+    k_after = adapt.k_after_stateful(x)
+    k_after[1::7] = 31
+    initial = torch.from_numpy(rng.randint(0, 13, rows).astype(np.int32)).to(dev)
+    initial[:2] = torch.tensor([0, 12], dtype=torch.int32)
+    k_used = adapt.k_used_from_after(k_after, initial).to(torch.int64)
+    u = u32_from_bits(x)
+    thr = (1 << torch.clamp(k_used + 3, max=24)) + (u & 1)
+    x = torch.where((torch.arange(rows, device=dev) % 7 == 4)[:, None], thr, u).to(torch.int32)
+    last, nxt = runs.zero_breaks(x == 0)
+    return x, k_after, initial, last, nxt
+
+
+def partition_cost_operands(codes, max_p, rng, dev):
+    """Kernel 10's operands for winners' u32 ``codes`` (B, n): the codes
+    with short zero runs across part edges, their zero breaks, and each
+    part's initial k, 0..12 (all 0 and all 12 on the first two rows)."""
+    x = torch.from_numpy(np.ascontiguousarray(short_runs(codes))).to(dev)
+    last, nxt = runs.zero_breaks(x == 0)
+    init_k = rng.randint(0, 13, (len(codes), K.partition_parts(max_p))).astype(np.int32)
+    init_k[0], init_k[1] = 0, 12
+    return x, last, nxt, torch.from_numpy(init_k).to(dev)
 
 
 def kernel_cases(rng, dev):
@@ -446,6 +522,31 @@ def kernel_cases(rng, dev):
     long_t = [(lbl, up(a), None) for lbl, a in long_rows]
     long_max, long_min = ([(lbl, up(break_indices(a, lrng, rev)), None) for lbl, a in long_rows]
                           for rev in (False, True))
+    # kernels 9 and 10: the candidate stacks and the winners above, with their operands; shapes beside the
+    # path's from their own seed: a row length the 16-byte loads cannot take (1001), the two sides of the
+    # block-per-row cut (2044, 2048), unequal parts (1000, 4113) and equal parts of no power of two (12288)
+    mrng = np.random.RandomState(9)
+    mode_call = (lambda x: K.mode_cost_sums(*x)), (lambda x: K.mode_cost_sums_plain(*x))
+    stack_m = mode_cost_operands(stack, mrng, dev)
+    probes_m = mode_cost_operands(probes, mrng, dev)
+    modes = [("(B*11, 16384)", stack_m, full, mode_call), ("probe (12B*11, 256)", probes_m, probe, mode_call),
+             ("group (128*11, 16384)", tuple(t[:g_rows] for t in stack_m), gfull, mode_call),
+             ("group probe (1024*11, 256)", tuple(t[:gp_rows] for t in probes_m), gprobe, mode_call)]
+    modes += [(f"(37, {n})", mode_cost_operands(adversarial_codes(37, n, mrng), mrng, dev), None, mode_call)
+              for n in (1001, 2044, 2048)]
+
+    def part_call(max_p):
+        return ((lambda x: K.partition_cost_sums(*x, max_p)), (lambda x: K.partition_cost_sums_plain(*x, max_p)))
+
+    parts = [("winners (B, 16384), orders 1..8", partition_cost_operands(winners, 8, mrng, dev), full, part_call(8)),
+             ("probe winners (12B, 256), orders 1..3", partition_cost_operands(probe_winners, 3, mrng, dev), probe,
+              part_call(3))]
+    parts += [(f"group winners ({rows}, {ops[0].shape[1]}), orders 1..{max_p}", tuple(t[:rows] for t in ops), kind,
+               part_call(max_p)) for (_, ops, _, _), rows, max_p, kind
+              in zip(list(parts), (GROUP_LANES, GROUP_PROBE_LANES), (8, 3), (gfull, gprobe))]
+    parts += [(f"(37, {n}), orders 1..{max_p}", partition_cost_operands(adversarial_codes(37, n, mrng), max_p, mrng,
+                                                                         dev), None, part_call(max_p))
+              for n, max_p in ((1000, 4), (4113, 7), (12288, 8), (64, 1))]
     return {
         "k_cost_sums": kcost,
         "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe),
@@ -460,14 +561,16 @@ def kernel_cases(rng, dev):
                                    (f"group ({g_rows}, {BLOCK})", k_after_t[:g_rows], gfull)]
         + [(f"(37, {n}), {n // 2048} tiles", up(k_after_codes(37, n, rng)), None)
            for n in range(2048, BLOCK + 1, 2048)],
+        "mode_cost_sums": modes,
+        "partition_cost_sums": parts,
     }
 
 
 def as_values(name, out):
-    """Kernel output -> int64 values (u32 sums, i32 scans) for the diff."""
+    """Kernel output -> int64 values (u32 sums, i32 scans, int64 bit sums) for the diff."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
-    conv = (lambda t: t.to(torch.int64)) if name.endswith("_i32") else u32_from_bits
-    return [conv(t) for t in outs]
+    return [t.to(torch.int64) if name.endswith("_i32") or t.dtype == torch.int64 else u32_from_bits(t)
+            for t in outs]
 
 
 def bound(name, x, out, ops=None):
@@ -480,7 +583,11 @@ def bound(name, x, out, ops=None):
     outs = list({o.data_ptr(): o for o in outs}.values())  # a result returned twice is written once
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (OPS_PER_ELEMENT[name] * ins[0].numel() if ops is None else ops) / INT32_OPS_PER_S * 1e3
+    if ops is None:
+        ops = OPS_PER_ELEMENT[name] * ins[0].numel()
+        if name == "partition_cost_sums":  # per sample and order: orders 1..max_p, 2^(max_p+1) - 2 parts
+            ops *= (ins[3].shape[1] + 2).bit_length() - 2
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -736,6 +843,8 @@ def check_accounting(label, shapes, c):
     check(counts["k_after_stateful_fused"] == plans["full"] + plans["group-full"] and
           counts["split_cumsums_u32"] == counts["cumsum_u32"] == plans["probe"] + plans["group-probe"],
           f"{label}: kernel 6 runs once per full-width plan, kernels 2 and 3 once per probe plan: {counts}, {plans}")
+    check(counts["mode_cost_sums"] == counts["partition_cost_sums"] == sum(plans.values()),
+          f"{label}: kernels 9 and 10 run once per plan: {counts}, {plans}")
     check(g["replays"] == sum(c.plans.values()) and g["captures"] == sum(c.captured.values())
           and g["eager"] == 2 * g["captures"],
           f"{label}: plans {c.plans}, captures {c.captured}, graphs {g}: every plan on the card must be a replay, "
@@ -1877,7 +1986,7 @@ def check_group_route(tmp, shapes, batches):
         seen.append((list(data_list), out))
         return out
 
-    print("inputs under 8 full blocks, warm, in turns host, card, card, host: FrameEncoder.encode against "
+    print("inputs under 8 full blocks, warm, host then card: FrameEncoder.encode against "
           "encode_frame; their lanes through the group route on the card (ChannelBlockEncoder(device='cuda')."
           "encode_lanes) against the host route (ChannelBlockEncoder().encode_lanes):")
     for label, mode, sr, depth, left, right in inputs:
@@ -1890,7 +1999,7 @@ def check_group_route(tmp, shapes, batches):
             ChannelBlockEncoder.encode_lanes = real_lanes
         check(len(seen) == 1, f"{label}: want one encode_lanes call on the host route, got {len(seen)}")
         lanes, want = seen[0]
-        for route in ("host", "card", "card", "host"):
+        for route in ("host", "card"):
             enc = FrameEncoder(12, mode, sr, depth, device="cuda")
             fn = enc.encode_frame if route == "host" else enc.encode
             with Counted(batches) as c:
@@ -1904,7 +2013,7 @@ def check_group_route(tmp, shapes, batches):
                 got, wall, peak = timed_on_card(lambda: cbe.encode_lanes(lanes))
             walls[f"lanes {route}"].append(wall)
             check(got == want, f"group route, {label}: lane bytes differ from the host route's ({route})")
-            if route == "card" and len(walls["lanes card"]) == 1:
+            if route == "card":
                 check(c.plans["full"] == c.plans["probe"] == 0, f"{label}: the plane pipeline ran: {c.plans}")
                 check(c.plans["group-full"] + c.plans["group-probe"] > 0, f"{label}: no group plan on the card")
                 check_accounting(f"group route, {label}", shapes, c)
@@ -1925,16 +2034,16 @@ def check_group_route(tmp, shapes, batches):
             ("1024 lanes of 256", left[: 1024 * 256].reshape(1024, 256))]
     for label, group in caps:
         walls = {"host": [], "card": []}
-        for route in ("host", "card", "card", "host"):
+        for route in ("host", "card"):
             cbe = ChannelBlockEncoder(device="cuda") if route == "card" else ChannelBlockEncoder()
             with Counted(batches) as c:
                 got, wall, peak = timed_on_card(lambda: cbe.encode_group(group))
             walls[route].append(wall)
-            if route == "host" and not walls["card"]:
+            if route == "host":
                 want = got
                 continue
             check(got == want, f"group route, {label}: bytes differ from the host route's ({route})")
-            if len(walls["card"]) == 1 and route == "card":
+            if route == "card":
                 check(sum(c.plans[k] for k in group_plans) == 1, f"group route, {label}: want one batch: {c.plans}")
                 check_accounting(f"group route, {label}", shapes, c)
                 add(c)
@@ -2478,23 +2587,6 @@ GRAPH_SHAPES = [(64, BLOCK), (128, BLOCK), (256, BLOCK), (768, 256), (1536, 256)
 GRAPH_FLAGS = [(True, True), (False, True), (True, False), (False, False)]  # (zero_run, partitioning)
 
 
-def graph_inputs(rows, n, seed):
-    """``rows`` lanes of ``n`` samples on card 0 with their candidates from
-    the host Levinson-Durbin: gliding-sine and filtered-noise planes,
-    silent lanes, sparse bursts and 24-bit extremes (every token class)."""
-    rng = np.random.RandomState(seed)
-    frames = rows * n // 2 + n
-    planes = [np.concatenate(fn(frames, 44100, 16, seed))[: rows * n].reshape(rows, n)
-              for fn in (gliding_stereo, filtered_noise_stereo)]
-    pcm = np.where((np.arange(rows) % 3 == 2)[:, None], planes[1], planes[0]).astype(np.int32)
-    pcm[5::8] = 0
-    pcm[6::8] = np.where(rng.rand(len(pcm[6::8]), n) < 0.02, rng.randint(-300, 300, (len(pcm[6::8]), n)), 0)
-    pcm[7::16] = np.where(np.arange(n) % 2, (1 << 23) - 1, -(1 << 23))
-    coeffs, _, lvalid, _ = lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
-    dev = torch.device("cuda", 0)
-    return (torch.from_numpy(pcm).to(dev), *plan_inputs_to_torch(coeffs, lvalid, dev))
-
-
 def graph_equal(got, want):
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     return all(torch.equal(g, w) for g, w in zip(got, want))
@@ -2599,7 +2691,7 @@ def check_graphs(batches):
     replayed; the gather into the static buffer; memory with every graph
     held. Returns the launches of the replays."""
     t15 = time.perf_counter()
-    inputs = {BLOCK: graph_inputs(256, BLOCK, 21), 256: graph_inputs(3072, 256, 22)}
+    inputs = {BLOCK: plan_batch(256, BLOCK, 21), 256: plan_batch(3072, 256, 22)}  # on card 0
     plan_graphs.release()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2644,6 +2736,11 @@ def check_graphs(batches):
           f"phase 15: want {keys} captures and {2 * keys} replays, got {g}")
     check(noise.rounds > 0, "phase 15: the card-noise thread never ran")
     check(all(c.launches[k] > 0 for k in ENCODE_KERNELS), f"phase 15: a kernel never launched: {c.launches}")
+    for key, (_, captured) in plan_graphs._CACHE.entries.items():
+        _, rows, n, zr, part, emit = key
+        got = {k: captured.launches.get(k, 0) for k in ("mode_cost_sums", "partition_cost_sums")}
+        check(got == {"mode_cost_sums": 1, "partition_cost_sums": int(part)},
+              f"plan graph {key[1:]}: want one launch of kernel 9 and, with partitioning, one of kernel 10: {got}")
     print(f"plan graphs: {keys} shapes x flags x emit_fields captured, each replay bit-exact against plan_group and "
           f"a ragged batch after the full one exact with the stale rows zeroed; {g['captures']} captures in "
           f"{g['capture_s']:.2f} s, {g['replays']} replays; another thread used the card meanwhile "
@@ -2855,11 +2952,15 @@ def main():
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.strip()}")
 
+    phase_seconds("1-2 (device, build)", t_start)
+
     # 3. kernels against their plain versions
+    t3 = time.perf_counter()
     rng = np.random.RandomState(20261016)
     print("kernels vs plain versions (bit-exact):")
     records, shapes = check_kernels(rng)
     check_argmin_ties(rng)
+    phase_seconds("3 (the kernels against their plain versions)", t3)
     restore_rng = np.random.RandomState(20261017)  # phase 11's kernel inputs, apart from the others' stream
     # phase 3 ran every kernel on the card: from here on this process is warm, so the cold route
     # (in-memory inputs of at most encoder.COLD_BLOCKS blocks on the host) never takes phase 4's files
@@ -2885,6 +2986,7 @@ def main():
         return
 
     # 4. real-size encodes through the port's main path, held to the port's host route
+    t4 = time.perf_counter()
     audio = [(label, sr, depth, gliding_stereo(frames, sr, depth, seed))
              for label, sr, depth, frames, seed in FILES]
     refs = []
@@ -2946,6 +3048,8 @@ def main():
     check(launches["k_after_stateful_fused"] == full, "kernel 6 must run once on every full-width plan batch")
     check(launches["split_cumsums_u32"] == launches["cumsum_u32"] == probe,
           "kernels 2 and 3 must run only on probe plan batches")
+    check(launches["mode_cost_sums"] == launches["partition_cost_sums"] == full + probe,
+          "kernels 9 and 10 must run once on every plan batch")
     # the timed shapes are every shape the path launches: they account for every launch
     for (label, *_), c in zip(FILES, counted):
         model = check_accounting(label, shapes, c)
@@ -2978,18 +3082,29 @@ def main():
                   f"plan graphs' pool included); launches {counts}")
 
         kinds = check_kinds(audio, shapes, batches)
+        phase_seconds("4 (the main path: real-size encodes)", t4)
 
         # 5. the goldens (all under 8 full blocks: the host route against the reference binary's bytes)
+        t5 = time.perf_counter()
         check_goldens(tmp)
+        phase_seconds("5 (the goldens)", t5)
 
         # 6-8. many files, one long file, the cold CLI
+        t6 = time.perf_counter()
         batch = check_batch_paths(tmp, shapes, batches)
+        phase_seconds("6 (many files)", t6)
+        t7 = time.perf_counter()
         stream_launches, long_wav, long_lac = check_stream(tmp, shapes, batches)
+        phase_seconds("7 (one long file)", t7)
+        t8 = time.perf_counter()
         check_cold_cli(tmp)
+        phase_seconds("8 (the cold CLI)", t8)
 
         # 10. the service
+        t10 = time.perf_counter()
         by_path = {"files": launches, "pooled": batch["launches"], "stream": stream_launches,
                    "serve": check_serve(tmp, shapes, batches, batch, (long_wav, long_lac))}
+        phase_seconds("10 (the service)", t10)
 
         # 11. decode on the card: phase 4's files, and a 3-minute file whose lanes are half FIR/LPC
         # (the gliding sines code every lane with a fixed predictor: kernel 7 has nothing to do there)
@@ -3004,7 +3119,9 @@ def main():
         print(f"phase 11 (decode on the card): {time.perf_counter() - t11:.1f} s")
 
         # 12. the mesh: a stand-in of two entries on card 0, and every card when there are two or more
+        t12 = time.perf_counter()
         by_path["mesh"] = check_mesh(tmp, shapes, batches, (*audio[0][3], refs[0]), batch, (long_wav, long_lac))
+        phase_seconds("12 (the mesh)", t12)
 
         # 13. the group route: inputs under 8 full blocks, lanes outside the 24-bit domain, no native runtime
         by_path["group"] = check_group_route(tmp, shapes, batches)

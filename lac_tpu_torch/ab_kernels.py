@@ -2,7 +2,7 @@
 
     python -m lac_tpu_torch.ab_kernels [--kcost OTHER_KCOST_CU] [--row-scan OTHER_ROW_SCAN_CU ...]
         [--k-after OTHER_K_AFTER_CU] [--restore OTHER_RESTORE_CU ...] [--rice-scan OTHER_RICE_SCAN_CU]
-        [--sass DIR]
+        [--mode-costs [OTHER_MODE_COSTS_CU ...]] [--sass DIR]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.
 Each ``OTHER_*`` is another version of that source with the same C
@@ -67,6 +67,14 @@ and once with ``-DLAC_RICE_SCAN_DEBUG``, whose fixpoint rounds a chunk and
 thread 0's cycles by phase (slowest lane and mean) are printed per input
 (that build is checked, not timed). The other source must have the same C
 entry, as the parent's does.
+
+``--mode-costs`` (kernels 9 and 10; other sources optional, first in the
+turns): the SASS instruction counts of ``mode_cost_rows`` and
+``partition_cost_rows``; kernel 9 at (2816, 16384) and (33792, 256) on
+chip_smoke.py's operands; kernel 10 at (256, 16384) over orders 1..8 and
+(3072, 256) over orders 1..3 on chip_smoke.py's operands and on audio-like
+codes; then this source's kernel 10 at (256, 16384) over orders 1..p for
+p = 1..8, what each order adds.
 """
 
 import argparse
@@ -625,6 +633,61 @@ def ab_rice_scan(chip_smoke, other, out_dir, rng, sass_dir):
                                                           for side, ms in best.items()))
 
 
+def _mode_cost_entries(path):
+    """(mode_cost_sums(ops), partition_cost_sums(ops, max_p)) for one mode_costs library."""
+    lib = ctypes.CDLL(str(path))
+    rows_fn = _bind(lib, "lac_mode_cost_sums", "pppppiip")
+    parts_fn = _bind(lib, "lac_partition_cost_sums", "ppppiiip")
+
+    def mode(ops):
+        x = ops[0]
+        out = torch.empty((x.shape[0], 4), dtype=torch.int64, device=x.device)
+        rows_fn(x, *(t.data_ptr() for t in ops), x.shape[0], x.shape[1], out.data_ptr())
+        return out
+
+    def parts(ops, max_p):
+        x = ops[0]
+        out = torch.empty((x.shape[0], K.partition_parts(max_p), 4), dtype=torch.int64, device=x.device)
+        parts_fn(x, *(t.data_ptr() for t in ops), x.shape[0], x.shape[1], max_p, out.data_ptr())
+        return out
+
+    return mode, parts
+
+
+def ab_mode_costs(chip_smoke, others, out_dir, rng, sass_dir):
+    builds = {f"other {i}" if len(others) > 1 else "other": (src, ()) for i, src in enumerate(others)}
+    builds["this"] = (CSRC / "mode_costs.cu", ())
+    libs = _build_all("mode_costs", builds, out_dir, sass_dir)
+    for side, lib in libs.items():
+        print(f"    {side}: SASS instructions of mode_cost_rows<256, true> (long rows, 16-byte loads) "
+              f"{_sass_count(lib, 'mode_cost_rowsILi256ELb1E')}, of partition_cost_rows "
+              f"{_sass_count(lib, 'partition_cost_rows')}")
+    entries = {side: _mode_cost_entries(lib) for side, lib in libs.items()}
+    dev = torch.device("cuda")
+    for rows, n in ((K_AFTER_ROWS, BLOCK), (12 * K_AFTER_ROWS, 256)):
+        ops = chip_smoke.mode_cost_operands(chip_smoke.adversarial_codes(rows, n, rng), rng, dev)
+        want = K.mode_cost_sums_plain(*ops)
+        _turns(chip_smoke, f"kernel 9 ({rows}, {n})", ops, {side: e[0] for side, e in entries.items()}, want,
+               chip_smoke.bound("mode_cost_sums", ops, want)[0])
+    audio = (rng.geometric(1e-3, (LANES, BLOCK)), rng.geometric(1e-3, (12 * LANES, 256)))
+    for (rows, n, max_p), codes in zip(((LANES, BLOCK, 8), (12 * LANES, 256, 3)), audio):
+        for label, c in (("adversarial", chip_smoke.adversarial_codes(rows, n, rng)),
+                         ("audio-like", codes.astype(np.uint32).view(np.int32))):
+            ops = chip_smoke.partition_cost_operands(c, max_p, rng, dev)
+            want = K.partition_cost_sums_plain(*ops, max_p)
+            sides = {side: (lambda o, f=e[1], m=max_p: f(o, m)) for side, e in entries.items()}
+            _turns(chip_smoke, f"kernel 10, {label} ({rows}, {n}), orders 1..{max_p}", ops, sides, want,
+                   chip_smoke.bound("partition_cost_sums", ops, want)[0])
+    ops = chip_smoke.partition_cost_operands(chip_smoke.adversarial_codes(LANES, BLOCK, rng), 8, rng, dev)
+    parts, times = entries["this"][1], []
+    for max_p in range(1, 9):
+        cut = (*ops[:3], ops[3][:, : K.partition_parts(max_p)].contiguous())
+        times.append(min(chip_smoke.time_ms(lambda o: parts(o, max_p), cut) for _ in range(2)))
+    print(f"  kernel 10 ({LANES}, {BLOCK}), this source, orders 1..p for p = 1..8: "
+          + ", ".join(f"{t:.4f}" for t in times) + " ms; each order adds "
+          + ", ".join(f"{b - a:.4f}" for a, b in zip(times, times[1:])) + " ms")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kcost", type=pathlib.Path, help="the other kcost.cu")
@@ -632,6 +695,7 @@ def main(argv=None):
     ap.add_argument("--k-after", type=pathlib.Path, help="the other k_after.cu")
     ap.add_argument("--restore", type=pathlib.Path, nargs="+", help="other restore.cu sources")
     ap.add_argument("--rice-scan", type=pathlib.Path, help="the other rice_scan.cu")
+    ap.add_argument("--mode-costs", type=pathlib.Path, nargs="*", help="other mode_costs.cu sources (none: this)")
     ap.add_argument("--sass", type=pathlib.Path, help="write each library's SASS into this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -653,6 +717,8 @@ def main(argv=None):
         ab_restore(chip_smoke, [src.resolve() for src in args.restore], out_dir, rng, args.sass)
     if args.rice_scan:
         ab_rice_scan(chip_smoke, args.rice_scan.resolve(), out_dir, rng, args.sass)
+    if args.mode_costs is not None:
+        ab_mode_costs(chip_smoke, [src.resolve() for src in args.mode_costs], out_dir, rng, args.sass)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("kcost.cu", "row_scan.cu", "k_after.cu", "restore.cu", "rice_scan.cu"))
+                for name in ("kcost.cu", "row_scan.cu", "k_after.cu", "restore.cu", "rice_scan.cu", "mode_costs.cu"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +41,8 @@ _ENTRIES = {
     "lac_k_after_stateful": ("p", "i", "i", "p"),
     "lac_recurrence_restore": ("p", "p", "p", "p", "p", "p", "i", "i", "p", "p"),
     "lac_rice_scan_tokenize": ("p", "i", "i", "p", "p", "i", "p", "p"),
+    "lac_mode_cost_sums": ("p", "p", "p", "p", "p", "i", "i", "p"),
+    "lac_partition_cost_sums": ("p", "p", "p", "p", "i", "i", "i", "p"),
 }
 
 _lock = threading.Lock()

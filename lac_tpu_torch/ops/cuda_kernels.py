@@ -1,12 +1,15 @@
-"""The port's eight hand-written Hopper kernels, each beside its plain
-PyTorch version: the planner's six (lac_tpu/ops/pallas_kernels.py,
-lac_tpu/ops/pallas_adapt.py), the device decode backend's FIR/LPC
-restore (the ``lax.scan`` of lac_tpu/ops/predictors.py:243) and the
-bit-reader experiment's static-Rice scan tokenizer (the ``lax.scan`` of
-lac_tpu/ops/device_reader.py:122).
+"""The port's ten hand-written Hopper kernels, each beside its plain
+PyTorch version: the planner's six that replace Pallas kernels
+(lac_tpu/ops/pallas_kernels.py, lac_tpu/ops/pallas_adapt.py), the device
+decode backend's FIR/LPC restore (the ``lax.scan`` of
+lac_tpu/ops/predictors.py:243), the bit-reader experiment's static-Rice
+scan tokenizer (the ``lax.scan`` of lac_tpu/ops/device_reader.py:122),
+and the planner's whole-block and per-partition mode-cost sums (XLA
+fusions of lac_tpu/encoder.py's ``plan_group``).
 
 Codes travel as an ``int32`` view of the u32 bit pattern; sums wrap in
-u32 exactly as on the TPU (every sum on the planner's path is <= 2^30).
+u32 exactly as on the TPU (every sum on the planner's path is <= 2^30),
+except the mode-cost sums of kernels 9 and 10, u64 (< 2^47) in int64.
 
 Dispatch rule, for every wrapper: a tensor on the CPU takes the plain
 version; a tensor on a CUDA device launches the kernel (built from
@@ -26,8 +29,9 @@ import threading
 
 import torch
 
+from ..format import constants as C
 from ..format.constants import INT32_MAX, INT32_MIN
-from ._backend import U32_MASK, bit_width, cummax, cummin_reverse, u32_from_bits
+from ._backend import U32_MASK, bit_width, cummax, cummin_reverse, shift_right, u32_from_bits
 
 launches = {
     "k_cost_sums": 0,
@@ -38,6 +42,8 @@ launches = {
     "k_after_stateful_fused": 0,
     "recurrence_restore": 0,
     "tokenize_static_rice_scan": 0,
+    "mode_cost_sums": 0,
+    "partition_cost_sums": 0,
 }
 
 
@@ -484,3 +490,167 @@ def tokenize_static_rice_scan(payload, k, nbits, max_tokens):
             max_tokens, res.data_ptr(), valid.data_ptr())
     _count("tokenize_static_rice_scan", payload.device)
     return res, valid
+
+
+# ---------------------------------------------------------------- kernels 9 and 10
+# csrc/mode_costs.cu; replace XLA fusions of lac_tpu/encoder.py's plan_group:
+# _mode_cost_fields (:113) with run_geometry over each candidate row, summed at
+# :217-221 (kernel 9), and the same fields per part of every partition order,
+# the loop at :323 (kernel 10). Their plain versions are the planner's torch
+# code that computed them.
+
+
+def rice_cost(u, k_used):
+    """Per-sample Rice bits of u32 codes ``u`` (int64) coded with ``k_used``."""
+    q = torch.where(k_used >= C.MAX_RICE_K, 0, u >> k_used)
+    return q + 1 + k_used.to(torch.int64)
+
+
+def mode_cost_fields(v, u, k_used, run_len, long_run, run_start):
+    """Per-sample bit costs for rice / zr / bin (encoder.cpp:201-263), int64."""
+    rice_per = rice_cost(u, k_used)
+    absv = v.to(torch.int64).abs()
+    bin_per = torch.where(absv == 0, 2, torch.where(absv <= 2, 3, 2 + rice_per))
+    esc = 1 << torch.clamp(k_used + C.ESCAPE_K_OFFSET, max=C.ESCAPE_K_CAP).to(torch.int64)
+    token_per = 2 + torch.where(u > esc, 32, rice_per)
+    # only read at run starts, where run_len >= ZERO_RUN_MIN_LENGTH
+    run_per = 2 + ((run_len.to(torch.int64) - C.ZERO_RUN_MIN_LENGTH) >> C.ZERO_RUN_LENGTH_K) + (
+        1 + C.ZERO_RUN_LENGTH_K)
+    zr_per = torch.where(run_start, run_per, torch.where(long_run, 0, token_per))
+    return rice_per, bin_per, zr_per
+
+
+def _residuals(u):
+    """u32 codes (int64) -> the signed residuals they code (zigzag decode)."""
+    return (u >> 1) ^ -(u & 1)
+
+
+def _mode_cost_operands(name, rows, *vecs):
+    """Validate (rows, n) int32 operands and (rows[, m]) int32 vectors on one
+    device; True when they lie on the CPU."""
+    on_cpu = _on_cpu(rows[0], name)
+    for t in (*rows, *vecs):
+        if t.dtype != torch.int32 or t.device != rows[0].device:
+            raise TypeError(f"{name}: want int32 operands on {rows[0].device}, got {t.dtype} on {t.device}")
+        if not on_cpu and not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous, got strides {t.stride()}")
+    if any(t.shape != rows[0].shape for t in rows) or any(t.shape[0] != rows[0].shape[0] for t in vecs):
+        raise ValueError(f"{name}: operand shapes differ: {[tuple(t.shape) for t in (*rows, *vecs)]}")
+    return on_cpu
+
+
+def mode_cost_sums_plain(u32_rows, k_after_rows, initial_k, last_nz, next_nz):
+    from .adapt import k_used_from_after
+    from .runs import run_geometry
+
+    n = u32_rows.shape[-1]
+    u = u32_from_bits(u32_rows)
+    k_used = k_used_from_after(k_after_rows, initial_k)
+    run_len, long_run, run_start = run_geometry(u == 0, last_nz, next_nz, torch.arange(n, device=u.device), n)
+    rice_per, bin_per, zr_per = mode_cost_fields(_residuals(u), u, k_used, run_len, long_run, run_start)
+    return torch.stack([rice_per.sum(dim=-1), bin_per.sum(dim=-1), zr_per.sum(dim=-1),
+                        run_start.any(dim=-1).to(torch.int64)], dim=-1)
+
+
+def mode_cost_sums(u32_rows, k_after_rows, initial_k, last_nz, next_nz):
+    """Whole-row mode costs of (R, n) u32 codes (int32 view): each sample
+    coded with the k before it (``initial_k`` (R,) at the first sample,
+    ``k_after_rows[:, i - 1]`` after it, the stateful adapter's output),
+    zero runs from the rows' zero breaks ``last_nz`` / ``next_nz`` (kernels
+    4 and 5). Returns (R, 4) int64: rice, bin and zero-run bits and
+    has_run (0 or 1) per row. Operands are int32 and, on the card,
+    contiguous."""
+    if initial_k.dim() != 1:
+        raise ValueError(f"mode_cost_sums: want initial_k (rows,), got {tuple(initial_k.shape)}")
+    rows = (u32_rows, k_after_rows, last_nz, next_nz)
+    if _mode_cost_operands("mode_cost_sums", rows, initial_k):
+        return mode_cost_sums_plain(u32_rows, k_after_rows, initial_k, last_nz, next_nz)
+    R, n = u32_rows.shape
+    out = torch.empty((R, 4), dtype=torch.int64, device=u32_rows.device)
+    if n == 0:
+        return out.zero_()
+    _launch("lac_mode_cost_sums", u32_rows, *(t.data_ptr() for t in (u32_rows, k_after_rows, initial_k, last_nz,
+                                                                       next_nz)), R, n, out.data_ptr())
+    _count("mode_cost_sums", u32_rows.device)
+    return out
+
+
+def partition_parts(max_p):
+    """Parts of orders 1..max_p, order p's at columns 2^p - 2 .. 2^(p+1) - 3."""
+    return (2 << max_p) - 2
+
+
+def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
+    from .adapt import k_after_stateless
+    from .runs import run_geometry
+
+    B, n = u32_w.shape
+    dev = u32_w.device
+    u = u32_from_bits(u32_w)
+    v, zw0 = _residuals(u), u == 0
+    zero1 = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    csz_hi = torch.cat([zero1, torch.cumsum(u >> 16, dim=-1)], dim=-1)  # (B, n+1)
+    csz_lo = torch.cat([zero1, torch.cumsum(u & 0xFFFF, dim=-1)], dim=-1)
+    idx = torch.arange(n, device=dev)
+    out = []
+    for p in range(1, max_p + 1):
+        nparts, base = 1 << p, n >> p
+        # the geometry on the device (a host copy would break a graph capture): the
+        # last part takes the remainder
+        part = torch.clamp(idx // base, max=nparts - 1)  # each sample's part
+        starts = torch.arange(nparts, device=dev) * base
+        ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+        pos, seg_end = idx - starts[part], ends[part]
+
+        def rep(a):
+            return a[:, part]
+
+        init_k_seg = init_k_parts[:, nparts - 2 : 2 * nparts - 2]
+        # stateless per-sample k from segment sums of the split cumsums
+        seg_hi = csz_hi[:, 1:] - rep(csz_hi[:, starts])
+        seg_lo = csz_lo[:, 1:] - rep(csz_lo[:, starts])
+        k_after_sl = k_after_stateless((seg_hi << 16) + seg_lo, pos)
+        k_used_p = torch.where(pos == 0, rep(init_k_seg), shift_right(k_after_sl, 1)).to(torch.int32)
+        rl_p, long_p, start_p = run_geometry(zw0, last_nz_w, next_nz_w, pos, seg_end)
+        rice_pp, bin_pp, zr_pp = mode_cost_fields(v, u, k_used_p, rl_p, long_p, start_p)
+        if n % nparts == 0:
+            sums = [f.reshape(B, nparts, base).sum(dim=-1) for f in (rice_pp, bin_pp, zr_pp)]
+            has_run_s = start_p.reshape(B, nparts, base).any(dim=-1)
+        else:
+            stacked = torch.stack([rice_pp, bin_pp, zr_pp, start_p.to(torch.int64)], dim=-1)
+            cs = torch.cat([torch.zeros((B, 1, 4), dtype=torch.int64, device=dev),
+                            torch.cumsum(stacked, dim=-2)], dim=-2)
+            seg = cs[:, ends] - cs[:, starts]
+            sums = [seg[..., 0], seg[..., 1], seg[..., 2]]
+            has_run_s = seg[..., 3] > 0
+        out.append(torch.stack([*sums, has_run_s.to(torch.int64)], dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
+    """Mode costs of every part of partition orders 1..``max_p`` of (B, n)
+    u32 codes (int32 view): order p cuts a row into 2^p parts of ``n >> p``
+    samples, the last part taking the remainder; each part's first sample
+    is coded with its initial k (``init_k_parts`` (B, 2^(max_p+1) - 2)
+    int32, order by order), later ones with the stateless adapter's k over
+    the part's samples before them; zero runs from the rows' zero breaks
+    (kernels 4 and 5), clamped to the part. Returns (B, 2^(max_p+1) - 2, 4)
+    int64: rice, bin and zero-run bits and has_run (0 or 1) per part. Needs
+    1 <= max_p <= 8, parts of at least MIN_PARTITION_SIZE samples and
+    n <= MAX_BLOCK_SIZE."""
+    B, n = u32_w.shape if u32_w.dim() == 2 else (None, None)
+    if (not 1 <= max_p <= C.MAX_PARTITION_ORDER or n is None or n > C.MAX_BLOCK_SIZE
+            or (n >> max_p) < C.MIN_PARTITION_SIZE):
+        raise ValueError(f"partition_cost_sums: want 1 <= max_p <= {C.MAX_PARTITION_ORDER}, parts of at least "
+                         f"{C.MIN_PARTITION_SIZE} samples and n <= {C.MAX_BLOCK_SIZE}, got max_p={max_p}, "
+                         f"shape {tuple(u32_w.shape)}")
+    if init_k_parts.dim() != 2 or init_k_parts.shape[1] != partition_parts(max_p):
+        raise ValueError(f"partition_cost_sums: want init_k_parts (B, {partition_parts(max_p)}), got "
+                         f"{tuple(init_k_parts.shape)}")
+    if _mode_cost_operands("partition_cost_sums", (u32_w, last_nz_w, next_nz_w), init_k_parts):
+        return partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p)
+    out = torch.empty((B, partition_parts(max_p), 4), dtype=torch.int64, device=u32_w.device)
+    _launch("lac_partition_cost_sums", u32_w, *(t.data_ptr() for t in (u32_w, last_nz_w, next_nz_w, init_k_parts)),
+            B, n, max_p, out.data_ptr())
+    _count("partition_cost_sums", u32_w.device)
+    return out

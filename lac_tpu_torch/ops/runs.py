@@ -43,9 +43,3 @@ def run_geometry(z, last_nz, next_nz, pos_in_seg, seg_end_exclusive):
     long_run = z & (run_len >= C.ZERO_RUN_MIN_LENGTH)
     run_start = long_run & (idx == run_first)
     return run_len, long_run, run_start
-
-
-def zero_run_info(z, pos_in_seg, seg_end_exclusive):
-    """Breaks + geometry in one call."""
-    last_nz, next_nz = zero_breaks(z)
-    return run_geometry(z, last_nz, next_nz, pos_in_seg, seg_end_exclusive)

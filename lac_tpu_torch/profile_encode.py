@@ -1,6 +1,7 @@
 """Profile warm encodes of the 3-minute 44.1 kHz 16-bit stereo file on the card.
 
     python -m lac_tpu_torch.profile_encode [--runs N] [--mesh N] [--file 3min|60s]
+    python -m lac_tpu_torch.profile_encode --sections [--runs N]
 
 The file is the music-like corpus that chip_smoke.py encodes
 (:func:`gliding_stereo`, from a seed; ``--file 60s``: its 60 s 96 kHz
@@ -28,7 +29,7 @@ prints, beside the card's name and power limit:
   graphs' pool is reserved, and only in part allocated);
 * device busy: the union of device-activity intervals over the
   profiled encode's wall (``torch.profiler`` with CUDA activity), and
-  device time and launch count of each of the six kernels, by the name
+  device time and launch count of each of the planner's kernels, by the name
   of its device function, and of everything else;
 * the plane uploads of one more encode (:class:`PlaneUploads`): bytes
   and copy time per chunk (the planes cross raw: the port has no packed
@@ -39,6 +40,17 @@ entries (:mod:`.parallel.mesh`): cards 0..N-1 when that many are
 visible, else N stand-ins that take the visible cards in turn (two on
 one card share it). Device busy, device time and the port's kernel
 launches are then also printed per card.
+
+With ``--sections`` it profiles the planner alone instead: one eager
+``encoder.plan_group`` at the plane pipeline's two plan shapes, (256,
+16384) and (3072, 256) (gliding-sine and filtered-noise lanes, silent and
+sparse lanes and 24-bit extremes, their candidates from the host
+Levinson-Durbin), with the planner's section ranges on
+(:func:`.utils.debug.section`), and prints for each section (candidate
+residuals, whole-block scoring, selection, mode choice, partition sweep,
+meta) its device time, its torch operators and its kernel launches,
+median over ``N`` profiled calls; then the device time of one replay of
+the shape's plan graph (CUDA events, median of ``N``).
 
 The script runs on a checkout whose plane pipeline plans or analyzes
 eagerly too: copied into an older checkout's package, it times that
@@ -56,9 +68,12 @@ import numpy as np
 import torch
 
 from . import device_pipeline
-from .encoder import FrameEncoder
+from . import encoder as encoder_mod
+from .encoder import FrameEncoder, lpc_candidates_from_lags, plan_inputs_to_torch
 from .ops import cuda_kernels
 from .parallel import make_mesh
+from .runtime import native
+from .utils import debug
 
 
 def gliding_stereo(frames, sample_rate, depth, seed):
@@ -106,7 +121,7 @@ def filtered_noise_stereo(frames, sample_rate, depth, seed):
 # chip_smoke.py's two files: frames, sample rate, bit depth, seed
 FILES = {"3min": (7_938_000, 44100, 16, 1), "60s": (5_760_000, 96000, 24, 2)}
 
-# the six kernels by the names of their device functions (csrc/*.cu; row_scan
+# the planner's kernels by the names of their device functions (csrc/*.cu; row_scan
 # is one template, told apart by its op type; SplitAddU32 before AddU32)
 _KERNEL_MARKS = (
     ("k_cost_sums", "k_cost_"),
@@ -115,6 +130,8 @@ _KERNEL_MARKS = (
     ("prefix_max_i32", "MaxI32"),
     ("suffix_min_i32", "MinI32"),
     ("k_after_stateful_fused", "k_after_kernel"),
+    ("mode_cost_sums", "mode_cost_rows"),
+    ("partition_cost_sums", "partition_cost_rows"),
 )
 KERNEL_NAMES = tuple(name for name, _ in _KERNEL_MARKS)
 
@@ -174,16 +191,110 @@ class PlaneUploads:
                 + "; ".join(f"{rows} {b:,} {t * 1e3:.3f}" for rows, b, t in chunks))
 
 
+# the planner's sections (encoder.plan_group's ``debug.section`` ranges), in order
+SECTIONS = ("residuals", "scoring", "selection", "mode", "sweep", "meta")
+
+
+def plan_batch(rows, n, seed):
+    """``rows`` lanes of ``n`` samples on the card with their candidates from
+    the host Levinson-Durbin: gliding-sine and filtered-noise lanes, silent
+    lanes, sparse bursts and 24-bit extremes."""
+    rng = np.random.RandomState(seed)
+    frames = rows * n // 2 + n
+    planes = [np.concatenate(fn(frames, 44100, 16, seed))[: rows * n].reshape(rows, n)
+              for fn in (gliding_stereo, filtered_noise_stereo)]
+    pcm = np.where((np.arange(rows) % 3 == 2)[:, None], planes[1], planes[0]).astype(np.int32)
+    pcm[5::8] = 0
+    pcm[6::8] = np.where(rng.rand(len(pcm[6::8]), n) < 0.02, rng.randint(-300, 300, (len(pcm[6::8]), n)), 0)
+    pcm[7::16] = np.where(np.arange(n) % 2, (1 << 23) - 1, -(1 << 23))
+    coeffs, _, lvalid, _ = lpc_candidates_from_lags(native.autocorr(pcm, 12), n)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return (torch.from_numpy(pcm).to(dev), *plan_inputs_to_torch(coeffs, lvalid, dev))
+
+
+def _device_us(ev):
+    """Device time of the kernels an event's operators launched (us)."""
+    return ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total
+
+
+def _top_ops(ev):
+    """The torch operators called directly under a range (not those that an
+    operator calls), through nested ranges."""
+    return sum(1 if c.name.startswith("aten::") else _top_ops(c) for c in ev.cpu_children)
+
+
+def _count(ev, name):
+    return sum(_count(c, name) for c in ev.cpu_children) + ev.name.startswith(name)
+
+
+def profile_sections(runs):
+    """Per section of one eager plan at the pipeline's two plan shapes:
+    device ms, operators and launches (median over ``runs`` profiled
+    calls), and one replay's device ms."""
+    cpu = torch.autograd.DeviceType.CPU
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        from . import plan_graphs
+    except ImportError:
+        plan_graphs = None
+    for rows, n, seed in ((256, 16384, 21), (3072, 256, 22)):
+        pcm, ct, vt = plan_batch(rows, n, seed)
+
+        def plan():
+            return encoder_mod.plan_group(pcm, ct, vt, n, True, True)
+
+        plan()
+        torch.cuda.synchronize()
+        got = {name: [] for name in (*SECTIONS, "plan")}
+        debug.sections_on()
+        try:
+            for _ in range(runs):
+                with torch.profiler.profile(activities=acts) as prof:
+                    with torch.profiler.record_function("plan"):
+                        plan()
+                    torch.cuda.synchronize()
+                events = [e for e in prof.events() if e.device_type == cpu]
+                for name in got:
+                    ev = next(e for e in events if e.name == (name if name == "plan" else f"plan_group.{name}"))
+                    got[name].append((_device_us(ev) / 1e3, _top_ops(ev), _count(ev, "cudaLaunchKernel")))
+        finally:
+            debug.sections_on(False)
+        total = statistics.median(d for d, _, _ in got["plan"])
+        print(f"plan_group sections, eager ({rows}, {n}), zero runs and partitioning on, median of {runs} "
+              f"profiled calls: device {total:.3f} ms, {got['plan'][0][1]} operators, {got['plan'][0][2]} launches")
+        for name in SECTIONS:
+            d = statistics.median(x for x, _, _ in got[name])
+            print(f"  {name:10s} device {d:8.3f} ms ({100 * d / max(total, 1e-9):5.1f}%), "
+                  f"{got[name][0][1]:5d} operators, {got[name][0][2]:5d} launches")
+        if plan_graphs is None:
+            continue
+        times = []
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            plan_graphs.planned(pcm, ct, vt, n, True, True, rows=rows)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        print(f"  one replay of its plan graph: device {statistics.median(times[1:]):.3f} ms (CUDA events, median "
+              f"of {runs} after the capture)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--mesh", type=int, default=0, help="mesh entries (0: one card, no mesh)")
     ap.add_argument("--file", choices=sorted(FILES), default="3min")
+    ap.add_argument("--sections", action="store_true", help="profile the planner's sections alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.sections:
+        profile_sections(args.runs)
+        return
     device_pipeline.mark_warm()  # the card's path, not the cold route's host route
     frames, rate, depth, seed = FILES[args.file]
     left, right = gliding_stereo(frames, rate, depth, seed)

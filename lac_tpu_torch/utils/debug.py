@@ -9,10 +9,11 @@ prints one ``[lac-timing]`` line per frame encode. A phase given the
 device it queues work on synchronizes that device when it ends, so its
 time is the device's as well as the host's. ``LAC_TPU_PROFILE=<dir>``
 wraps each frame encode in ``torch.profiler`` and writes a Chrome trace
-into ``<dir>``.
+into ``<dir>``, with the planner's sections (:func:`section`) marked.
 
 Both variables are read once, at import: with them unset a phase is a bare
-``yield`` and never synchronizes a device.
+``yield`` and never synchronizes a device, and a section is a bare
+``yield`` unless a profiling tool turns them on (:func:`sections_on`).
 """
 
 import contextlib
@@ -74,6 +75,34 @@ def timing_report(label: str) -> None:
 
 
 # ---------------------------------------------------------- torch profiler
+
+_SECTIONS = [bool(_PROFILE_DIR)]
+
+
+def sections_on(on=True) -> None:
+    """Mark :func:`section` ranges from now on (``profile_encode`` turns
+    them on; ``LAC_TPU_PROFILE`` sets them at import)."""
+    _SECTIONS[0] = bool(on)
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """A ``torch.profiler`` range named ``name`` around the enclosed block
+    while sections are on (:func:`sections_on`), so that a profile shows
+    the device time, operators and launches of each section of the
+    planner; a bare ``yield`` otherwise, and always while the current
+    stream is being captured into a CUDA graph (a graph holds no range)."""
+    if not _SECTIONS[0]:
+        yield
+        return
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
 
 
 @contextlib.contextmanager

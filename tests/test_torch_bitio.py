@@ -3,8 +3,8 @@
 ``lac_tpu_torch.bitio.pack.pack_stream`` against ``lac_tpu.bitio`` on
 random fields and against ``lac_tpu``'s serial ``BitWriter``, whose Rice
 codes the port's ``BitReader`` reads back; the cost
-fields of the port's planner (``encoder._mode_cost_fields``,
-``encoder._head_and_row_costs``) against ``lac_tpu.ops.costs``, the
+fields of the port's planner (``cuda_kernels.mode_cost_fields``, the
+plain version of its mode-cost kernels, and ``encoder._head_and_row_costs``) against ``lac_tpu.ops.costs``, the
 readable cost spec, and against the scalar spec of
 tests/test_costs_spec.py; ``lac_tpu_torch.utils.debug``'s
 ``[lac-timing]`` line and ``LAC_TPU_PROFILE`` trace in fresh processes,
@@ -28,7 +28,7 @@ from lac_tpu_torch import encoder  # noqa: E402
 from lac_tpu_torch.bitio import BitReader, pack  # noqa: E402
 from lac_tpu_torch.format import constants as C  # noqa: E402
 from lac_tpu_torch.format.zigzag import zigzag_encode  # noqa: E402
-from lac_tpu_torch.ops import adapt, runs  # noqa: E402
+from lac_tpu_torch.ops import adapt, cuda_kernels, runs  # noqa: E402
 from lac_tpu_torch.utils import debug  # noqa: E402
 
 from .oracle import zigzag  # noqa: E402
@@ -120,8 +120,8 @@ def _planner_fields(v, k_used):
     whole-block residual rows ``v`` (B, n) coded with ``k_used``."""
     n = v.shape[-1]
     vt = torch.from_numpy(v)
-    rl, lr_, rs = runs.zero_run_info(vt == 0, torch.arange(n), n)
-    return (rl, lr_, rs), encoder._mode_cost_fields(vt, zigzag_encode(vt), k_used, rl, lr_, rs)
+    rl, lr_, rs = runs.run_geometry(vt == 0, *runs.zero_breaks(vt == 0), torch.arange(n), n)
+    return (rl, lr_, rs), cuda_kernels.mode_cost_fields(vt, zigzag_encode(vt), k_used, rl, lr_, rs)
 
 
 @pytest.mark.parametrize("case", range(3))
@@ -160,7 +160,7 @@ def test_segment_estimators_match_reference_rules():
 @pytest.mark.parametrize("n", [256, 1000, 4096])
 def test_costs_match_the_planners_cost_fields(n):
     """The spec and the planner's own layouts agree: lac_tpu.ops.costs'
-    whole-block mode costs against ``encoder._mode_cost_fields``' sums,
+    whole-block mode costs against ``cuda_kernels.mode_cost_fields``' sums,
     its initial and static k against the k-cost kernel's sums
     (``encoder._head_and_row_costs``)."""
     rng = np.random.RandomState(n)
@@ -188,13 +188,13 @@ def test_costs_match_the_planners_cost_fields(n):
 
 
 def test_rice_cost_per_sample_caps_q_at_k31():
-    """The planner's per-sample Rice cost (``encoder._rice_cost``) drops
+    """The planner's per-sample Rice cost (``cuda_kernels.rice_cost``) drops
     the quotient at k >= MAX_RICE_K, as lac_tpu.ops.costs does."""
     u = torch.tensor([0, 5, (1 << 32) - 1], dtype=torch.int64)
     for k in (0, 3, 30, 31):
         kk = torch.full((3,), k, dtype=torch.int32)
         want = [(0 if k >= C.MAX_RICE_K else int(x) >> k) + 1 + k for x in u]
-        assert encoder._rice_cost(u, kk).tolist() == want
+        assert cuda_kernels.rice_cost(u, kk).tolist() == want
         assert ref_costs.rice_cost_per_sample(u.numpy().astype(np.uint64), kk.numpy()).tolist() == want
 
 

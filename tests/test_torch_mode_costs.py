@@ -1,0 +1,383 @@
+"""Kernels 9 and 10, the planner's mode-cost sums (csrc/mode_costs.cu).
+
+``cuda_kernels.mode_cost_sums`` (whole rows) and
+``cuda_kernels.partition_cost_sums`` (every part of partition orders
+1..max_p) on CPU tensors take their plain versions. Here those are held
+bit for bit against numpy models of the CUDA source's row algorithms (a
+thread's four contiguous samples with the k_after[i - 1] hand-over from
+the lane before, u64 prefix sums staged per row, each warp's range walked
+32 samples a step with a flush where a step crosses into the next part)
+and against lac_tpu's own pieces under ``xp=numpy``:
+``encoder._mode_cost_fields``, ``ops.runs.run_geometry`` /
+``zero_breaks``, ``ops.adapt.k_used_from_after`` /
+``k_after_stateless``, on rows that reach every branch (all zeros, zero
+runs of 3, 4 and 5 across part edges, u = 2^32 - 1, codes at the escape
+threshold and one above, k = 31, initial k 0 and 12). Integers: every
+comparison is exact. The card's kernels are held to the same plain
+versions by chip_smoke.py.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lac_tpu import encoder as ref_enc  # noqa: E402
+from lac_tpu.ops import adapt as ref_adapt  # noqa: E402
+from lac_tpu.ops import runs as ref_runs  # noqa: E402
+from lac_tpu.ops._backend import shift_right as ref_shift_right  # noqa: E402
+from lac_tpu_torch.format import constants as C  # noqa: E402
+from lac_tpu_torch.ops import cuda_kernels as K  # noqa: E402
+
+SOURCE = Path(__file__).resolve().parent.parent / "lac_tpu_torch" / "csrc" / "mode_costs.cu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text()).group(1))
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def _codes(rows, n, seed):
+    """(rows, n) u32 codes, one pattern a row: noise of several widths,
+    all zeros, all 2^32 - 1, sparse bursts with zero runs of 3, 4 and 5
+    placed across every power-of-two edge, codes of both parities near the
+    escape thresholds 2^3..2^24, and 24-bit-sized codes."""
+    rng = np.random.RandomState(seed)
+    u = np.zeros((rows, n), np.uint64)
+    for r in range(rows):
+        kind = r % 7
+        if kind == 0:
+            u[r] = rng.randint(0, 1 << (4 + 3 * (r % 5)), n)
+        elif kind == 2:
+            u[r] = (1 << 32) - 1
+        elif kind == 3:
+            u[r] = rng.randint(1, 9, n)
+            for edge in range(32, n, 32):
+                length = 3 + (edge // 32) % 3  # runs of 3, 4, 5
+                at = edge - length // 2 - (edge // 64) % 2
+                u[r, max(at, 0) : at + length] = 0
+        elif kind == 4:
+            e = rng.randint(3, 25, n).astype(np.uint64)
+            u[r] = (np.uint64(1) << e) + rng.randint(0, 2, n).astype(np.uint64)
+        elif kind == 5:
+            u[r] = rng.randint(0, 1 << 25, n) * (rng.rand(n) < 0.3)
+        elif kind == 6:
+            u[r] = rng.randint(0, 1 << 32, n, dtype=np.uint64)
+    return u.astype(np.uint32).view(np.int32)
+
+
+def _k_after(codes, seed):
+    """k_after rows for kernel 9: the stateful adapter's on most rows, all
+    31 on one, random 0..31 on another."""
+    rng = np.random.RandomState(seed)
+    u = codes.view(np.uint32).astype(np.uint64)
+    k = np.asarray(ref_adapt.k_after_stateful(u, xp=np)).astype(np.int32)
+    k[1 % len(k)] = 31
+    if len(k) > 7:
+        k[7] = rng.randint(0, 32, k.shape[1])
+    return k
+
+
+def _escape_rows(k_after, initial_k, rng):
+    """Codes at each sample's escape threshold 2^min(k + 3, 24), or one above."""
+    k_used = np.concatenate([initial_k[:, None], k_after[:, :-1]], axis=1).astype(np.int64)
+    thr = np.uint64(1) << np.minimum(k_used + 3, 24).astype(np.uint64)
+    return (thr + rng.randint(0, 2, k_used.shape).astype(np.uint64)).astype(np.uint32).view(np.int32)
+
+
+def _breaks(codes):
+    last, nxt = ref_runs.zero_breaks(codes == 0, xp=np)
+    return np.asarray(last, np.int32), np.asarray(nxt, np.int32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ------------------------------------------------------------------ numpy models of csrc/mode_costs.cu
+
+
+def _bit_length(x):
+    """bit_width of non-negative integers < 2^53 (exact in float64)."""
+    return np.where(x == 0, 0, np.frexp(x.astype(np.float64))[1]).astype(np.int64)
+
+
+def _add_sample(u, k, last, nxt, i, start, end):
+    """add_sample on arrays: (rice, bin, zr) uint64 and the run-start flag."""
+    u = u.astype(np.uint64)
+    k = k.astype(np.int64)
+    q = np.where(k >= 31, np.uint64(0), u >> np.minimum(k, 31).astype(np.uint64))
+    rice = q + np.uint64(1) + k.astype(np.uint64)
+    absv = (u >> np.uint64(1)) + (u & np.uint64(1))
+    bin_ = np.where(absv == 0, np.uint64(2), np.where(absv <= 2, np.uint64(3), np.uint64(2) + rice))
+    esc = np.uint64(1) << np.minimum(k + 3, 24).astype(np.uint64)
+    zr = np.uint64(2) + np.where(u > esc, np.uint64(32), rice)
+    first = np.maximum(last.astype(np.int64) + 1, start)
+    length = np.minimum(nxt.astype(np.int64), end) - first
+    in_run = (u == 0) & (length >= 4)
+    head = in_run & (i == first)
+    run_cost = (2 + ((length - 4) >> 2) + 3).astype(np.uint64)
+    zr = np.where(in_run, np.where(head, run_cost, np.uint64(0)), zr)
+    return rice, bin_, zr, head
+
+
+def _k_stateless(S, c):
+    """k_stateless: the stateless k after c >= 1 samples of sum S (u64)."""
+    c = c.astype(np.uint64)
+    N = S + (c >> np.uint64(1))
+    M = np.maximum(N, c) - c
+    k0 = np.maximum(_bit_length(M) - _bit_length(c), 0)
+    k = np.minimum(k0 + ((M >> k0.astype(np.uint64)) >= c), 31)
+    return np.where(N < np.uint64(2) * c, 0, k)
+
+
+def model_mode_cost_sums(codes, k_after, initial_k, last, nxt):
+    """Kernel 9 as written: a row per group of 256 threads (n >= 2048) or
+    32; 16-byte loads when n % 4 == 0, a lane's first sample coded with the
+    previous vector's last k_after (shuffle, or the halo at a warp's lane
+    0), the vector at 0 with initial_k; per-thread partial sums, then the
+    group's total."""
+    R, n = codes.shape
+    u = codes.view(np.uint32)
+    group = 256 if n >= _constant("kShortRow") else 32
+    i = np.broadcast_to(np.arange(n), (R, n))
+    if n % 4 == 0:
+        k4 = k_after.reshape(R, n // 4, 4)
+        prev = np.concatenate([initial_k[:, None], k4[:, :-1, 3]], axis=1)  # the hand-over
+        k_used = np.concatenate([prev[..., None], k4[..., :3]], axis=-1).reshape(R, n)
+        thread = (np.arange(n) // 4) % group
+    else:
+        k_used = np.concatenate([initial_k[:, None], k_after[:, :-1]], axis=1)
+        thread = np.arange(n) % group
+    rice, bin_, zr, head = _add_sample(u, k_used, last, nxt, i, 0, n)
+    out = np.zeros((R, 4), np.uint64)
+    for t in range(group):  # each thread's partial sums, then the reduction
+        mine = thread == t
+        out[:, 0] += rice[:, mine].sum(axis=1, dtype=np.uint64)
+        out[:, 1] += bin_[:, mine].sum(axis=1, dtype=np.uint64)
+        out[:, 2] += zr[:, mine].sum(axis=1, dtype=np.uint64)
+        out[:, 3] |= head[:, mine].any(axis=1).astype(np.uint64)
+    return out.astype(np.int64)
+
+
+def model_partition_cost_sums(codes, last, nxt, init_k, max_p):
+    """Kernel 10 as written: the row's u64 prefix sums P, warp ranges of
+    n / warps samples walked 32 a step for every order, each lane's sums
+    of the warp's current part flushed (warp sum, added into the part's
+    accumulator) where a step crosses into the next part and at the end of
+    the range."""
+    R, n = codes.shape
+    u = codes.view(np.uint32).astype(np.uint64)
+    P = np.zeros((R, n + 1), np.uint64)
+    P[:, 1:] = np.cumsum(u, axis=1, dtype=np.uint64)
+    warps = min(max(n // 512, 1), 32)
+    parts = (2 << max_p) - 2
+    acc = np.zeros((R, parts, 3), np.uint64)
+    run = np.zeros((R, parts), bool)
+    lanes = np.arange(32)
+    rows = np.arange(R)[:, None]
+
+    def flush(s, srun, e):
+        acc[:, e] += s.sum(axis=1, dtype=np.uint64)
+        run[:, e] |= srun.any(axis=1)
+
+    for p in range(1, max_p + 1):
+        nparts, base = 1 << p, n >> p
+        off = nparts - 2
+        for w in range(warps):
+            r0, r1 = w * n // warps, (w + 1) * n // warps
+            cur = min(r0 // base, nparts - 1)
+            cur_end = n if cur == nparts - 1 else (cur + 1) * base
+            s = np.zeros((R, 32, 3), np.uint64)
+            srun = np.zeros((R, 32), bool)
+            for s0 in range(r0, r1, 32):
+                i = s0 + lanes
+                live = i < r1
+                step_next = live & (i >= cur_end)
+                j = np.where(step_next, cur + 1, cur)
+                start = j * base
+                end = np.where(j == nparts - 1, n, start + base)
+                ii = np.minimum(i, n - 1)
+                pi = P[:, ii]
+                c = np.maximum(ii - start, 1)
+                k = np.where(ii == start, init_k[rows, off + j], _k_stateless(pi - P[:, start], c))
+                rice, bin_, zr, head = _add_sample(P[:, ii + 1] - pi, k, last[:, ii], nxt[:, ii], ii, start, end)
+                cost = np.stack([rice, bin_, zr], axis=-1) * live[None, :, None]
+                head = head & live
+                if step_next.any():
+                    keep = ~step_next
+                    flush(s + cost * keep[None, :, None], srun | (head & keep), off + cur)
+                    s = cost * step_next[None, :, None]
+                    srun = head & step_next
+                    cur += 1
+                    cur_end = n if cur == nparts - 1 else (cur + 1) * base
+                else:
+                    s = s + cost
+                    srun = srun | head
+            flush(s, srun, off + cur)
+    return np.concatenate([acc, run[..., None].astype(np.uint64)], axis=-1).astype(np.int64)
+
+
+# ------------------------------------------------------------------ lac_tpu's pieces under numpy
+
+
+def ref_mode_cost_sums(codes, k_after, initial_k, last, nxt):
+    n = codes.shape[1]
+    u = codes.view(np.uint32)
+    v = codes.view(np.uint32).astype(np.int64)
+    v = np.where(v & 1, -(v >> 1) - 1, v >> 1).astype(np.int32)
+    k_used = ref_adapt.k_used_from_after(k_after, initial_k, xp=np)
+    rl, lr, rs = ref_runs.run_geometry(u == 0, last, nxt, np.arange(n, dtype=np.int64), np.int64(n), xp=np)
+    rice, bin_, zr = ref_enc._mode_cost_fields(v, u, k_used, rl, lr, rs, np)
+    return np.stack([rice.sum(-1), bin_.sum(-1), zr.sum(-1), rs.any(-1)], axis=-1).astype(np.int64)
+
+
+def ref_partition_cost_sums(codes, last, nxt, init_k, max_p):
+    """lac_tpu/encoder.py's sweep (:323-388) for orders 1..max_p, each
+    part's sums from its own pieces."""
+    B, n = codes.shape
+    u = codes.view(np.uint32)
+    u64 = u.astype(np.uint64)
+    v = np.where(u64 & 1, -(u64 >> 1).astype(np.int64) - 1, (u64 >> 1).astype(np.int64)).astype(np.int32)
+    cs = np.concatenate([np.zeros((B, 1), np.uint64), np.cumsum(u64, axis=1, dtype=np.uint64)], axis=1)
+    out = []
+    for p in range(1, max_p + 1):
+        nparts, base = 1 << p, n >> p
+        starts = np.minimum(np.arange(nparts, dtype=np.int64) * base, n)
+        ends = np.concatenate([starts[1:], [n]])
+        sizes = ends - starts
+        pos = np.concatenate([np.arange(sz, dtype=np.int64) for sz in sizes])
+        seg_end = np.repeat(ends, sizes)
+        seg_sum = cs[:, 1:] - np.repeat(cs[:, starts], sizes, axis=1)
+        k_after_sl = ref_adapt.k_after_stateless(seg_sum, pos, xp=np)
+        init_seg = init_k[:, nparts - 2 : 2 * nparts - 2]
+        k_used = np.where(pos == 0, np.repeat(init_seg, sizes, axis=1), ref_shift_right(k_after_sl, 1, xp=np))
+        rl, lr, rs = ref_runs.run_geometry(u == 0, last, nxt, pos, seg_end, xp=np)
+        rice, bin_, zr = ref_enc._mode_cost_fields(v, u, k_used.astype(np.int32), rl, lr, rs, np)
+        per = [np.add.reduceat(f.astype(np.uint64), starts, axis=1) for f in (rice, bin_, zr)]
+        per.append(np.logical_or.reduceat(rs, starts, axis=1).astype(np.uint64))
+        out.append(np.stack(per, axis=-1))
+    return np.concatenate(out, axis=1).astype(np.int64)
+
+
+# ------------------------------------------------------------------ kernel 9
+
+
+@pytest.mark.parametrize("n", [256, 4096, 4096 + 17])
+@pytest.mark.parametrize("initial", [0, 12])
+def test_mode_cost_sums_plain_model_and_lac_tpu_agree(n, initial):
+    rng = np.random.RandomState(n + initial)
+    codes = _codes(9, n, seed=n)
+    initial_k = np.full(len(codes), initial, np.int32)
+    initial_k[3] = 31 - initial  # k = 31 at the first sample too
+    k_after = _k_after(codes, seed=n)
+    codes = np.concatenate([codes, _escape_rows(k_after[:2], initial_k[:2], rng)])
+    k_after = np.concatenate([k_after, k_after[:2]])
+    initial_k = np.concatenate([initial_k, initial_k[:2]])
+    last, nxt = _breaks(codes)
+    got = K.mode_cost_sums(_t(codes), _t(k_after), _t(initial_k), _t(last), _t(nxt))
+    assert got.dtype == torch.int64 and got.shape == (len(codes), 4)
+    want = ref_mode_cost_sums(codes, k_after, initial_k, last, nxt)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(model_mode_cost_sums(codes, k_after, initial_k, last, nxt), want)
+    assert got[:, 3].tolist().count(1) > 0 and got[:, 3].tolist().count(0) > 0
+
+
+def test_mode_cost_sums_all_zero_rows_are_one_run():
+    n = 300
+    codes = np.zeros((2, n), np.int32)
+    k_after = np.zeros((2, n), np.int32)
+    initial_k = np.array([0, 12], np.int32)
+    last, nxt = _breaks(codes)
+    got = K.mode_cost_sums(_t(codes), _t(k_after), _t(initial_k), _t(last), _t(nxt)).numpy()
+    run = 2 + ((n - 4) >> 2) + 3
+    np.testing.assert_array_equal(got[:, 2], [run, run])
+    np.testing.assert_array_equal(got[:, 3], [1, 1])
+    np.testing.assert_array_equal(got[:, 1], [2 * n, 2 * n])
+    np.testing.assert_array_equal(got[:, 0], [n, n + 12])  # u = 0: 1 + k bits, k = 12 at the first sample
+    np.testing.assert_array_equal(got, model_mode_cost_sums(codes, k_after, initial_k, last, nxt))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "initial"])
+def test_mode_cost_sums_refuses_bad_operands(bad):
+    x = torch.zeros((3, 64), dtype=torch.int32)
+    args = [x, x.clone(), torch.zeros(3, dtype=torch.int32), x.clone(), x.clone()]
+    if bad == "dtype":
+        args[1] = args[1].to(torch.int64)
+    elif bad == "shape":
+        args[3] = torch.zeros((3, 63), dtype=torch.int32)
+    else:
+        args[2] = torch.zeros((3, 1), dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        K.mode_cost_sums(*args)
+
+
+# ------------------------------------------------------------------ kernel 10
+
+
+def _init_k(B, max_p, seed):
+    """Each part's initial k: 0 and 12 on the first two rows, 0..12 elsewhere."""
+    k = np.random.RandomState(seed).randint(0, 13, (B, K.partition_parts(max_p))).astype(np.int32)
+    k[0], k[1 % B] = 0, 12
+    return k
+
+
+@pytest.mark.parametrize("n", [256, 4096, 4096 + 17])
+@pytest.mark.parametrize("max_p", range(9))
+def test_partition_cost_sums_plain_model_and_lac_tpu_agree(n, max_p):
+    codes = _codes(7, n, seed=3 * n + max_p)
+    last, nxt = _breaks(codes)
+    init_k = _init_k(len(codes), max(max_p, 1), seed=max_p)
+    args = (_t(codes), _t(last), _t(nxt), _t(init_k))
+    if max_p == 0 or (n >> max_p) < C.MIN_PARTITION_SIZE:
+        with pytest.raises(ValueError):  # plan_group never asks for these
+            K.partition_cost_sums(*args, max_p)
+        return
+    got = K.partition_cost_sums(*args, max_p)
+    assert got.dtype == torch.int64 and got.shape == (len(codes), (2 << max_p) - 2, 4)
+    want = ref_partition_cost_sums(codes, last, nxt, init_k, max_p)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(model_partition_cost_sums(codes, last, nxt, init_k, max_p), want)
+    assert got[..., 3].any() and not got[..., 3].all()
+
+
+def test_partition_cost_sums_order_8():
+    """The deepest order the format allows, 256 parts of 32 samples, and
+    a u = 2^32 - 1 row whose stateless k reaches 31."""
+    n, max_p = 8192, 8
+    codes = _codes(3, n, seed=8)
+    last, nxt = _breaks(codes)
+    init_k = _init_k(3, max_p, seed=8)
+    got = K.partition_cost_sums(_t(codes), _t(last), _t(nxt), _t(init_k), max_p).numpy()
+    want = ref_partition_cost_sums(codes, last, nxt, init_k, max_p)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(model_partition_cost_sums(codes, last, nxt, init_k, max_p), want)
+
+
+def test_partition_cost_sums_refuses_a_wrong_part_table():
+    x = torch.zeros((2, 256), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.partition_cost_sums(x, x, x, torch.zeros((2, 13), dtype=torch.int32), 3)
+
+
+def test_model_constants_match_the_source():
+    """The models read the source's shape rules; the format's limits are the kernel's."""
+    assert _constant("kMaxOrder") == C.MAX_PARTITION_ORDER
+    assert _constant("kMinPart") == C.MIN_PARTITION_SIZE
+    assert _constant("kMaxN") == C.MAX_BLOCK_SIZE
+    assert _constant("kZeroRunMin") == C.ZERO_RUN_MIN_LENGTH
+    assert _constant("kZeroRunK") == C.ZERO_RUN_LENGTH_K
+    assert (_constant("kEscapeKOffset"), _constant("kEscapeKCap")) == (C.ESCAPE_K_OFFSET, C.ESCAPE_K_CAP)

@@ -229,7 +229,7 @@ def test_zero_runs(xp):
     want = _ref(ref_runs.run_geometry, xp, z, *a_want, pos, seg_end)
     for g, w in zip(got, want):
         _eq(g, w)
-    got = runs.zero_run_info(_t(z), torch.arange(n), n)
+    got = runs.run_geometry(_t(z), *runs.zero_breaks(_t(z)), torch.arange(n), n)  # the whole block's
     want = _ref(ref_runs.zero_run_info, xp, z, np.arange(n, dtype=np.int64), np.int64(n))
     for g, w in zip(got, want):
         _eq(g, w)

@@ -5,7 +5,9 @@ the jitted ``lac_tpu.encoder.plan_group(xp=jax.numpy)`` and the numpy
 ``plan_group`` bit for bit: full 16384-sample blocks, 256-sample stereo
 probes (with the zero-run and partitioning switches) and an odd length
 whose partitions are unequal. Both planners get the same LPC candidate
-set from the host Levinson-Durbin, made from the same PCM.
+set from the host Levinson-Durbin, made from the same PCM. The
+planner's profiler ranges appear only while a profiling tool turns them
+on.
 """
 
 import numpy as np
@@ -113,3 +115,25 @@ def test_k_cost_call_sites(monkeypatch, n, stack_calls, order_calls):
     assert port[:, 1].max() > 0, "want a lane that accepts a partitioning"
     np.testing.assert_array_equal(port, jit)
     np.testing.assert_array_equal(port, ref_np)
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_section_ranges_only_while_turned_on(on):
+    """The planner's six profiler ranges (``debug.section``) appear in a
+    profile only while a profiling tool turns them on; the plan is the same."""
+    from lac_tpu_torch.utils import debug
+
+    pcm = _pcm(3, 256, 5)
+    coeffs, _, lvalid, _ = ref_enc.lpc_candidates_from_lags(ref_lpc.autocorrelation(pcm, 12), 256)
+    ct, vt = plan_inputs_to_torch(coeffs, lvalid, "cpu")
+    want = plan_group(torch.from_numpy(pcm), ct, vt, 256, True, True)
+    debug.sections_on(on)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got = plan_group(torch.from_numpy(pcm), ct, vt, 256, True, True)
+    finally:
+        debug.sections_on(False)
+    names = {e.name for e in prof.events() if e.name.startswith("plan_group.")}
+    sections = {f"plan_group.{s}" for s in ("residuals", "scoring", "selection", "mode", "sweep", "meta")}
+    assert names == (sections if on else set())
+    assert torch.equal(got, want)
