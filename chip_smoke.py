@@ -280,13 +280,7 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 #     threshold (3), token (compare, u64 select and add 5), the zero test
 #     (1), three u64 accumulations (6), the k hand-over and four 16-byte
 #     loads amortised (2);
-#   partition_cost_sums, per sample and order: those fields (31), u and
-#     the part's sum before the sample from the staged prefix sums (2
-#     shared loads, 2 u64 subtracts: 6), the stateless k (the first-sample
-#     test, N, its compare, M, two bit widths, the shift, the compare and
-#     the cap: 20), the part (live and next tests, start, end: 6), the two
-#     break loads and the vote (3), the prefix scan and flushes amortised
-#     (4).
+#   partition_cost_sums: PARTITION_OPS below, per sample and order.
 OPS_PER_ELEMENT = {
     "k_cost_sums": 35,
     "split_cumsums_u32": 8,
@@ -295,7 +289,6 @@ OPS_PER_ELEMENT = {
     "suffix_min_i32": 4,
     "k_after_stateful_fused": 120,
     "mode_cost_sums": 33,
-    "partition_cost_sums": 70,  # per sample and partition order
     # per restored sample on csrc/restore.cu's fast way, besides its taps, in
     # int32-instruction equivalents (a float64 instruction issues at half
     # that rate: 64 lanes an SM, so it counts 2): the floor and the float64
@@ -310,6 +303,19 @@ OPS_PER_ELEMENT = {
     # (2), the valid compare (1) and the two stores (2)
     SCAN: 21,
 }
+# partition_cost_sums, per sample and partition order: the integer
+# instructions its arithmetic needs once what does not depend on the order
+# (u, its class, the zero runs, the prefix at the part's start) is done once
+# a sample. Where the part sums below 2^31: the running sum (1), its clamp
+# (1), two bit widths (2), k0 (1), the shift (1), the compare (1) and the
+# add (1) of the stateless k; the quotient (1), t = q + k (1) and its sum
+# (1); bin's test and add (2); the escape test, its select and zr's add (3):
+# 17. With 64-bit values: the running sum (2), the clamp (4), the bit width
+# of M (5) and of c (1), k0 (1), the shift (2), the compare (2), the cap
+# (1) and the add (1); the quotient with its cap (2), t (1) and its sum (2);
+# bin (3); escape and zr (4): 31. Counted over what these inputs need:
+# each part at the count its sum calls for (partition_ops).
+PARTITION_OPS = (17, 31)
 # kernel 7, per tap of a restored sample: one float64 multiply-add (2 int32
 # equivalents); the history rotates through registers (no move). The work
 # counted is each lane's valid samples times its own order, what the data needs
@@ -547,6 +553,16 @@ def kernel_cases(rng, dev):
     parts += [(f"(37, {n}), orders 1..{max_p}", partition_cost_operands(adversarial_codes(37, n, mrng), max_p, mrng,
                                                                          dev), None, part_call(max_p))
               for n, max_p in ((1000, 4), (4113, 7), (12288, 8), (64, 1))]
+    # the full width at every deepest order, from its own seed: each order's part edges on the chunk path
+    prng = np.random.RandomState(16384)
+    wide_rows = adversarial_codes(37, BLOCK, prng)
+    parts += [(f"(37, {BLOCK}), orders 1..{max_p}", partition_cost_operands(wide_rows, max_p, prng, dev), None,
+               part_call(max_p)) for max_p in range(1, 9)]
+    # which of kernel 10's paths (csrc/mode_costs.cu) each shape takes: the main path's rows the chunk path
+    paths = {n: K.partition_cost_path(n) for n in {ops[0].shape[1] for _, ops, _, _ in parts}}
+    check(paths[BLOCK][0] == paths[256][0] == "chunks", f"partition_cost_sums: the main path's rows take {paths}")
+    paths = {n: f"{kind}, R = {r}" if r else kind for n, (kind, r) in paths.items()}
+    parts = [(f"{label} [{paths[ops[0].shape[1]]}]", ops, tm, call) for label, ops, tm, call in parts]
     return {
         "k_cost_sums": kcost,
         "split_cumsums_u32": [("probe (12B*11, 256)", probes_t, probe),
@@ -584,11 +600,24 @@ def bound(name, x, out, ops=None):
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if ops is None:
-        ops = OPS_PER_ELEMENT[name] * ins[0].numel()
-        if name == "partition_cost_sums":  # per sample and order: orders 1..max_p, 2^(max_p+1) - 2 parts
-            ops *= (ins[3].shape[1] + 2).bit_length() - 2
+        ops = partition_ops(ins) if name == "partition_cost_sums" else OPS_PER_ELEMENT[name] * ins[0].numel()
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def partition_ops(x):
+    """PARTITION_OPS over the samples of every part of orders 1..max_p of
+    kernel 10's operands ``x`` (codes, breaks, initial k): the 32-bit count
+    in a part that sums below 2^31, the 64-bit one elsewhere."""
+    u = u32_from_bits(x[0])
+    B, n = u.shape
+    total = 0
+    for p in range(1, (x[3].shape[1] + 2).bit_length() - 1):  # 2^(max_p+1) - 2 parts
+        part = torch.clamp(torch.arange(n, device=u.device) // (n >> p), max=(1 << p) - 1)  # the last to n
+        sums = torch.zeros((B, 1 << p), dtype=torch.int64, device=u.device).index_add_(1, part, u)
+        ops = torch.where(sums >= 1 << 31, PARTITION_OPS[1], PARTITION_OPS[0])
+        total += int((ops * torch.bincount(part, minlength=1 << p)).sum().item())
+    return total
 
 
 def time_ms(fn, x, iters=20):

@@ -69,12 +69,17 @@ thread 0's cycles by phase (slowest lane and mean) are printed per input
 entry, as the parent's does.
 
 ``--mode-costs`` (kernels 9 and 10; other sources optional, first in the
-turns): the SASS instruction counts of ``mode_cost_rows`` and
-``partition_cost_rows``; kernel 9 at (2816, 16384) and (33792, 256) on
-chip_smoke.py's operands; kernel 10 at (256, 16384) over orders 1..8 and
-(3072, 256) over orders 1..3 on chip_smoke.py's operands and on audio-like
-codes; then this source's kernel 10 at (256, 16384) over orders 1..p for
-p = 1..8, what each order adds.
+turns): the SASS instruction counts of ``mode_cost_rows`` and of every
+kernel-10 function of each source (``partition_cost_rows``, the general
+path, and ``partition_cost_chunks<R>``, the power-of-two path); kernel 9
+at (2816, 16384) and (33792, 256) on chip_smoke.py's operands; kernel 10
+at its four path shapes (256, 16384) and (128, 16384) over orders 1..8,
+(3072, 256) and (1024, 256) over orders 1..3, on chip_smoke.py's operands
+and on audio-like codes, every source in turns, beside chip_smoke.py's
+bound; then each source's kernel 10 at (256, 16384) over orders 1..p for
+p = 1..8, each bit-exact, what each order adds and its SM cycles a
+sample. A variant of the source (another chunk width, block shape or
+layout) is timed as one more source.
 """
 
 import argparse
@@ -121,17 +126,30 @@ def _build(src, out, defines=()):
     return "\n".join(report)
 
 
-def _sass_count(lib, kernel):
-    """Instructions of ``kernel`` in ``lib`` (NOPs left out), or None without cuobjdump."""
+def _sass_counts(lib, mark):
+    """{function: instructions (NOPs left out)} of every function of
+    ``lib`` whose name holds ``mark``, or None without cuobjdump."""
     tool = os.path.join(os.path.dirname(_cuda_lib._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts = {}
     for fn in sass.split("Function :")[1:]:
-        if kernel in fn.splitlines()[0]:
+        name = fn.splitlines()[0].strip()
+        if mark in name:
             ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn, re.M)
-            return sum(1 for op in ops if not op.strip().startswith("NOP"))
-    raise RuntimeError(f"no {kernel} in the SASS of {lib}")
+            counts[name] = sum(1 for op in ops if not op.strip().startswith("NOP"))
+    return counts
+
+
+def _sass_count(lib, kernel):
+    """Instructions of ``kernel`` in ``lib`` (NOPs left out), or None without cuobjdump."""
+    counts = _sass_counts(lib, kernel)
+    if counts is None:
+        return None
+    if not counts:
+        raise RuntimeError(f"no {kernel} in the SASS of {lib}")
+    return next(iter(counts.values()))
 
 
 def _build_all(tag, builds, out_dir, sass_dir, kernel=None):
@@ -654,14 +672,21 @@ def _mode_cost_entries(path):
     return mode, parts
 
 
+# kernel 10 at the main path's shapes: (rows, n, max_p) of a full-width plan, a probe plan, and the group route's caps
+PARTITION_SHAPES = ((LANES, BLOCK, 8), (12 * LANES, 256, 3), (128, BLOCK, 8), (1024, 256, 3))
+
+
 def ab_mode_costs(chip_smoke, others, out_dir, rng, sass_dir):
     builds = {f"other {i}" if len(others) > 1 else "other": (src, ()) for i, src in enumerate(others)}
     builds["this"] = (CSRC / "mode_costs.cu", ())
     libs = _build_all("mode_costs", builds, out_dir, sass_dir)
     for side, lib in libs.items():
+        kernel10 = _sass_counts(lib, "partition_cost_") or {}
+        short = (re.search(r"partition_cost_(?:rows|chunks)(?:ILi\d+E)?", name)[0] for name in kernel10)
+        named = sorted(zip((re.sub(r"ILi(\d+)E", r"<\1>", name) for name in short), kernel10.values()))
         print(f"    {side}: SASS instructions of mode_cost_rows<256, true> (long rows, 16-byte loads) "
-              f"{_sass_count(lib, 'mode_cost_rowsILi256ELb1E')}, of partition_cost_rows "
-              f"{_sass_count(lib, 'partition_cost_rows')}")
+              f"{_sass_count(lib, 'mode_cost_rowsILi256ELb1E')}; of "
+              + ", ".join(f"{name} {count}" for name, count in named))
     entries = {side: _mode_cost_entries(lib) for side, lib in libs.items()}
     dev = torch.device("cuda")
     for rows, n in ((K_AFTER_ROWS, BLOCK), (12 * K_AFTER_ROWS, 256)):
@@ -669,23 +694,29 @@ def ab_mode_costs(chip_smoke, others, out_dir, rng, sass_dir):
         want = K.mode_cost_sums_plain(*ops)
         _turns(chip_smoke, f"kernel 9 ({rows}, {n})", ops, {side: e[0] for side, e in entries.items()}, want,
                chip_smoke.bound("mode_cost_sums", ops, want)[0])
-    audio = (rng.geometric(1e-3, (LANES, BLOCK)), rng.geometric(1e-3, (12 * LANES, 256)))
-    for (rows, n, max_p), codes in zip(((LANES, BLOCK, 8), (12 * LANES, 256, 3)), audio):
-        for label, c in (("adversarial", chip_smoke.adversarial_codes(rows, n, rng)),
-                         ("audio-like", codes.astype(np.uint32).view(np.int32))):
+    print(f"  kernel 10's path: {', '.join(f'n = {n} {K.partition_cost_path(n)}' for n in (BLOCK, 256))} (this)")
+    for rows, n, max_p in PARTITION_SHAPES:
+        audio = rng.geometric(1e-3, (rows, n)).astype(np.uint32).view(np.int32)
+        for label, c in (("adversarial", chip_smoke.adversarial_codes(rows, n, rng)), ("audio-like", audio)):
             ops = chip_smoke.partition_cost_operands(c, max_p, rng, dev)
             want = K.partition_cost_sums_plain(*ops, max_p)
             sides = {side: (lambda o, f=e[1], m=max_p: f(o, m)) for side, e in entries.items()}
             _turns(chip_smoke, f"kernel 10, {label} ({rows}, {n}), orders 1..{max_p}", ops, sides, want,
                    chip_smoke.bound("partition_cost_sums", ops, want)[0])
     ops = chip_smoke.partition_cost_operands(chip_smoke.adversarial_codes(LANES, BLOCK, rng), 8, rng, dev)
-    parts, times = entries["this"][1], []
-    for max_p in range(1, 9):
-        cut = (*ops[:3], ops[3][:, : K.partition_parts(max_p)].contiguous())
-        times.append(min(chip_smoke.time_ms(lambda o: parts(o, max_p), cut) for _ in range(2)))
-    print(f"  kernel 10 ({LANES}, {BLOCK}), this source, orders 1..p for p = 1..8: "
-          + ", ".join(f"{t:.4f}" for t in times) + " ms; each order adds "
-          + ", ".join(f"{b - a:.4f}" for a, b in zip(times, times[1:])) + " ms")
+    cycles = chip_smoke.SM_CLOCK_HZ * torch.cuda.get_device_properties(dev).multi_processor_count / (LANES * BLOCK)
+    for side, (_, parts) in entries.items():
+        times = []
+        for max_p in range(1, 9):
+            cut = (*ops[:3], ops[3][:, : K.partition_parts(max_p)].contiguous())
+            want = K.partition_cost_sums_plain(*cut, max_p)
+            chip_smoke.check(torch.equal(parts(cut, max_p), want), f"kernel 10, {side}, orders 1..{max_p}: differs")
+            times.append(min(chip_smoke.time_ms(lambda o, m=max_p: parts(o, m), cut) for _ in range(2)))
+        adds = [b - a for a, b in zip(times, times[1:])]
+        print(f"  kernel 10 ({LANES}, {BLOCK}), {side}, orders 1..p for p = 1..8: "
+              + ", ".join(f"{t:.4f}" for t in times) + " ms; each order adds "
+              + ", ".join(f"{d:.4f}" for d in adds) + " ms, SM cycles a sample and order "
+              + ", ".join(f"{d * 1e-3 * cycles:.3f}" for d in adds) + " (at the 1.98 GHz boost clock)")
 
 
 def main(argv=None):

@@ -44,6 +44,11 @@ _ENTRIES = {
     "lac_mode_cost_sums": ("p", "p", "p", "p", "p", "i", "i", "p"),
     "lac_partition_cost_sums": ("p", "p", "p", "p", "i", "i", "i", "p"),
 }
+# C entry -> argument kinds of the entries that launch nothing (no stream, no
+# device) and return an int
+_QUERIES = {
+    "lac_partition_cost_path": ("i",),
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -116,6 +121,10 @@ def load():
             for name, args in _ENTRIES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [kinds[a] for a in args] + [ctypes.c_void_p, ctypes.c_int]
+                fn.restype = ctypes.c_int
+            for name, args in _QUERIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [kinds[a] for a in args]
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -627,6 +627,17 @@ def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     return torch.cat(out, dim=1)
 
 
+def partition_cost_path(n):
+    """The path kernel 10 takes for rows of ``n`` samples, as the built
+    library decides it (from ``n`` alone): ("chunks", R) for the
+    power-of-two path, each lane owning R samples, ("rows", 0) for the
+    general path. Needs the library (a CUDA toolkit)."""
+    from . import _cuda_lib
+
+    r = _cuda_lib.load().lac_partition_cost_path(n)
+    return ("chunks", r) if r else ("rows", 0)
+
+
 def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     """Mode costs of every part of partition orders 1..``max_p`` of (B, n)
     u32 codes (int32 view): order p cuts a row into 2^p parts of ``n >> p``
@@ -634,10 +645,12 @@ def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     is coded with its initial k (``init_k_parts`` (B, 2^(max_p+1) - 2)
     int32, order by order), later ones with the stateless adapter's k over
     the part's samples before them; zero runs from the rows' zero breaks
-    (kernels 4 and 5), clamped to the part. Returns (B, 2^(max_p+1) - 2, 4)
-    int64: rice, bin and zero-run bits and has_run (0 or 1) per part. Needs
-    1 <= max_p <= 8, parts of at least MIN_PARTITION_SIZE samples and
-    n <= MAX_BLOCK_SIZE."""
+    (kernels 4 and 5: ``runs.zero_breaks`` of the codes; the card's
+    power-of-two path reads them only at its chunks' edges), clamped to the
+    part. Returns (B, 2^(max_p+1) - 2, 4) int64: rice, bin and zero-run
+    bits and has_run (0 or 1) per part. Needs 1 <= max_p <= 8, parts of at
+    least MIN_PARTITION_SIZE samples, n <= MAX_BLOCK_SIZE and, on the card,
+    initial k in 0..31 (the planner's are 0..INITIAL_MAX_K)."""
     B, n = u32_w.shape if u32_w.dim() == 2 else (None, None)
     if (not 1 <= max_p <= C.MAX_PARTITION_ORDER or n is None or n > C.MAX_BLOCK_SIZE
             or (n >> max_p) < C.MIN_PARTITION_SIZE):

@@ -131,7 +131,7 @@ _KERNEL_MARKS = (
     ("suffix_min_i32", "MinI32"),
     ("k_after_stateful_fused", "k_after_kernel"),
     ("mode_cost_sums", "mode_cost_rows"),
-    ("partition_cost_sums", "partition_cost_rows"),
+    ("partition_cost_sums", "partition_cost_"),  # partition_cost_chunks (power-of-two rows) or _rows
 )
 KERNEL_NAMES = tuple(name for name, _ in _KERNEL_MARKS)
 

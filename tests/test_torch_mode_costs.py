@@ -5,9 +5,12 @@
 1..max_p) on CPU tensors take their plain versions. Here those are held
 bit for bit against numpy models of the CUDA source's row algorithms (a
 thread's four contiguous samples with the k_after[i - 1] hand-over from
-the lane before, u64 prefix sums staged per row, each warp's range walked
-32 samples a step with a flush where a step crosses into the next part)
-and against lac_tpu's own pieces under ``xp=numpy``:
+the lane before; kernel 10's general path: u64 prefix sums staged per
+row, each warp's range walked 32 samples a step with a flush where a step
+crosses into the next part; its power-of-two path: a lane's chunk of R
+samples inside one part of every order, lane constants, edge zero runs
+clipped per order, 32-bit or 64-bit lanes, a segmented reduction) and
+against lac_tpu's own pieces under ``xp=numpy``:
 ``encoder._mode_cost_fields``, ``ops.runs.run_geometry`` /
 ``zero_breaks``, ``ops.adapt.k_used_from_after`` /
 ``k_after_stateless``, on rows that reach every branch (all zeros, zero
@@ -231,6 +234,140 @@ def model_partition_cost_sums(codes, last, nxt, init_k, max_p):
     return np.concatenate([acc, run[..., None].astype(np.uint64)], axis=-1).astype(np.int64)
 
 
+def _chunk_r(n):
+    """Samples a lane owns on kernel 10's power-of-two path, max(8, n / 1024)
+    (a row is at most one block of 1024 lanes), 0 for the general path."""
+    return 0 if n & (n - 1) else max(8, n // 1024)
+
+
+def _run_cost(length):
+    return 2 + ((length - 4) >> 2) + 3
+
+
+def model_partition_chunks(codes, last, nxt, init_k, max_p):
+    """Kernel 10 as written: partition_cost_chunks for power-of-two n,
+    partition_cost_rows (``model_partition_cost_sums``) for every other n.
+    On the power-of-two path each lane owns a chunk of R samples: its sum,
+    its zero runs from its bit mask (the edge runs' ends read from last_nz
+    at its first sample and next_nz at its last), the order-independent
+    class of each sample, the lane constants, the chunks' exclusive u64
+    prefixes; per order the lane walks its samples with D = S - ceil(c/2),
+    32-bit (values wrapping mod 2^32) where no part of its warp sums to
+    2^31 and 64-bit elsewhere, clips its edge runs to its part, and the
+    part's sums are a segmented reduction over its lanes (per warp, then
+    u64 across the warps of a part)."""
+    B, n = codes.shape
+    R = _chunk_r(n)
+    if R == 0:
+        return model_partition_cost_sums(codes, last, nxt, init_k, max_p)
+    L = n // R
+    u = codes.view(np.uint32).astype(np.uint64).reshape(B, L, R)
+    z = u == 0
+    rr = np.arange(R)
+    a = np.arange(L) * R  # chunk starts
+    # edge runs: the zero samples at the chunk's start and end (all zeros: R and R)
+    lead = np.cumprod(z, axis=-1).sum(-1)
+    trail = np.cumprod(z[..., ::-1], axis=-1).sum(-1)
+    edge = (rr < lead[..., None]) | (rr >= R - trail[..., None])
+    La = np.where(lead > 0, last[:, a] + 1, 0).astype(np.int64)
+    Xb = np.where(trail > 0, nxt[:, a + R - 1], 0).astype(np.int64)
+    # inner runs: the same at every order; runs of >= 4 cost at their head
+    mid = z & ~edge
+    pad = np.zeros((B, L, 3), bool)
+    m4 = mid & np.concatenate([mid[..., 1:], pad[..., :1]], -1) & np.concatenate([mid[..., 2:], pad[..., :2]], -1) \
+        & np.concatenate([mid[..., 3:], pad], -1)
+    longm = m4.copy()
+    for sh in (1, 2, 3):
+        longm[..., sh:] |= m4[..., :-sh]
+    to_end = np.zeros((B, L, R + 1), np.int64)  # long samples from r on
+    for r in range(R - 1, -1, -1):
+        to_end[..., r] = np.where(longm[..., r], to_end[..., r + 1] + 1, 0)
+    heads = longm & ~np.concatenate([np.zeros((B, L, 1), bool), longm[..., :-1]], -1)
+    cost = np.where(heads, _run_cost(to_end[..., :R]), 0).sum(-1)
+    forced = (edge & z) | longm
+    bu = _bit_length(np.where(z, 0, u - 1))
+    cls = np.where(z, -3, np.where(u > (1 << 24), 32, bu - 3))
+    w = np.where(forced, 33, cls)
+    bin_c = 3 * R - z.sum(-1)
+    zr_c = 3 * R - 34 * forced.sum(-1) + cost
+    run_mid = longm.any(-1)
+    sums = u.sum(-1, dtype=np.uint64)
+    Pc = np.zeros((B, L + 1), np.uint64)
+    Pc[:, 1:] = np.cumsum(sums, axis=1, dtype=np.uint64)
+    out = np.zeros((B, (2 << max_p) - 2, 4), np.uint64)
+    rows = np.arange(B)[:, None]
+    for p in range(1, max_p + 1):
+        G, length, off = L >> p, n >> p, (1 << p) - 2
+        j = np.arange(L) // G
+        s = j * length
+        e = s + length
+        c0 = a - s
+        Ps, Pe = Pc[:, j * G], Pc[:, (j + 1) * G]
+        S0 = Pc[:, :L] - Ps
+        warps = np.arange(L) // 32
+        big = (Pe - Ps) >= np.uint64(1 << 31)
+        wide = np.zeros((B, L), bool)
+        for wi in range(warps.max() + 1):
+            wide[:, warps == wi] = big[:, warps == wi].any(axis=1, keepdims=True)
+        k_first = init_k[rows, off + j]
+        D = S0.astype(np.int64) - (c0 >> 1)
+        rice = np.full((B, L), R, np.uint64)
+        bin_ = bin_c.astype(np.uint64)
+        zr = zr_c.astype(np.int64).astype(np.uint64)  # mod 2^64
+        ks = []
+        for r in range(R):
+            c = (c0 + r).astype(np.uint64)
+            M = np.maximum(D, 0).astype(np.uint64)
+            assert (M[~wide] < (1 << 31)).all() and (u[..., r][~wide] < (1 << 31)).all()
+            bwc = np.maximum(_bit_length(c0), _bit_length(np.int64(r)))  # bw(c0 + r), c0 0 or a multiple of R
+            k0 = np.maximum(_bit_length(M) - bwc, 0)
+            low = (M >> k0.astype(np.uint64)) & np.uint64(0xFFFFFFFF)  # the shifted M's low word
+            k = np.minimum(k0 + (low >= c), 31)
+            kc = k
+            if r == 0:
+                k = np.where(c0 == 0, k_first, k)
+                kc = np.minimum(k, 31)
+            q = np.where(kc >= 31, np.uint64(0), u[..., r] >> np.minimum(kc, 31).astype(np.uint64))
+            t = q + k.astype(np.uint64)
+            wr = w[..., r]
+            rice += t
+            bin_ += np.where((wr >= 0) & (wr <= 32), t, np.uint64(0))
+            zr += np.where(wr > kc, np.uint64(31), t)
+            D += u[..., r].astype(np.int64) - (1 - (r & 1))
+            ks.append(k)
+        # the edge runs, clipped to the part
+        allz = lead == R
+        first = np.maximum(La, s)
+        run = run_mid.copy()
+        hit = allz & (first == a)
+        zr += np.where(hit, _run_cost(np.minimum(Xb, e) - first), 0).astype(np.uint64)
+        run |= hit
+        llen = a + lead - first
+        some = ~allz & (lead > 0)
+        hit = some & (llen >= 4) & (first == a)
+        zr += np.where(hit, _run_cost(llen), 0).astype(np.uint64)
+        run |= hit
+        ksum = sum(np.where(lead > i, ks[i], 0) for i in range(3))
+        zr += np.where(some & (llen < 4), 3 * lead + ksum, 0).astype(np.uint64)
+        tlen = np.minimum(Xb, e) - (a + R - trail)
+        some = ~allz & (trail > 0)
+        hit = some & (tlen >= 4)
+        zr += np.where(hit, _run_cost(tlen), 0).astype(np.uint64)
+        run |= hit
+        ksum = sum(np.where(trail > i, ks[R - 1 - i], 0) for i in range(3))
+        zr += np.where(some & (tlen < 4), 3 * trail + ksum, 0).astype(np.uint64)
+        # 32-bit lanes wrap mod 2^32 (their part sums are below it); per warp, then u64 across warps
+        lane_sums = [np.where(wide, f, f & np.uint64(0xFFFFFFFF)) for f in (rice, bin_, zr)]
+        span = min(G, 32)
+        for f, v in enumerate(lane_sums):
+            per = v.reshape(B, L // span, span).sum(-1, dtype=np.uint64)
+            narrow = ~wide.reshape(B, L // span, span)[..., 0]
+            per = np.where(narrow, per & np.uint64(0xFFFFFFFF), per)
+            out[:, off : off + (1 << p), f] = per.reshape(B, 1 << p, -1).sum(-1, dtype=np.uint64)
+        out[:, off : off + (1 << p), 3] = run.reshape(B, 1 << p, G).any(-1)
+    return out.astype(np.int64)
+
+
 # ------------------------------------------------------------------ lac_tpu's pieces under numpy
 
 
@@ -335,7 +472,7 @@ def _init_k(B, max_p, seed):
     return k
 
 
-@pytest.mark.parametrize("n", [256, 4096, 4096 + 17])
+@pytest.mark.parametrize("n", [256, 4096, 4096 + 17, 64, 16384])
 @pytest.mark.parametrize("max_p", range(9))
 def test_partition_cost_sums_plain_model_and_lac_tpu_agree(n, max_p):
     codes = _codes(7, n, seed=3 * n + max_p)
@@ -351,6 +488,7 @@ def test_partition_cost_sums_plain_model_and_lac_tpu_agree(n, max_p):
     want = ref_partition_cost_sums(codes, last, nxt, init_k, max_p)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(model_partition_cost_sums(codes, last, nxt, init_k, max_p), want)
+    np.testing.assert_array_equal(model_partition_chunks(codes, last, nxt, init_k, max_p), want)
     assert got[..., 3].any() and not got[..., 3].all()
 
 
@@ -365,6 +503,104 @@ def test_partition_cost_sums_order_8():
     want = ref_partition_cost_sums(codes, last, nxt, init_k, max_p)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(model_partition_cost_sums(codes, last, nxt, init_k, max_p), want)
+    np.testing.assert_array_equal(model_partition_chunks(codes, last, nxt, init_k, max_p), want)
+
+
+def _k_stateless_int(S, c):
+    N = S + (c >> 1)
+    if N < 2 * c:
+        return 0
+    M = N - c
+    k0 = max(M.bit_length() - c.bit_length(), 0)
+    return min(k0 + ((M >> k0) >= c), 31)
+
+
+def _escape_row(n, p, init_k_row, rng):
+    """Codes at each sample's escape threshold 2^min(k + 3, 24) at order p
+    (k the part's initial k, then the stateless k), or one above."""
+    base, row = n >> p, np.zeros(n, np.uint64)
+    for j in range(1 << p):
+        S = 0
+        for c in range(base):
+            k = int(init_k_row[(1 << p) - 2 + j]) if c == 0 else _k_stateless_int(S, c)
+            row[j * base + c] = (1 << min(k + 3, 24)) + rng.randint(0, 2)
+            S += int(row[j * base + c])
+    return row
+
+
+def _edge_rows(n, R, rng):
+    """Rows whose zero runs sit at the edges of the R-sample chunks: runs of
+    1..6 that end at, start at or straddle a chunk edge (every part edge is
+    one), all-zero chunks beside nonzero ones, a run over several parts."""
+    rows = []
+    row = rng.randint(1, 50, n).astype(np.uint64)
+    for i, edge in enumerate(range(R, n, R)):
+        length, shift = 1 + i % 6, (i // 6) % 3  # before, across, after the edge
+        at = edge - length if shift == 0 else (edge - length // 2 if shift == 1 else edge)
+        row[at : at + length] = 0
+    rows.append(row)
+    row = rng.randint(1, 1 << 20, n).astype(np.uint64)
+    for c in range(0, n // R, 3):
+        row[c * R : (c + 1) * R] = 0  # an all-zero chunk every third
+    row[n // 4 - 3 : 3 * n // 4 + 2] = 0  # a run across the middle parts
+    rows.append(row)
+    return rows
+
+
+@pytest.mark.parametrize("n, max_p", [(256, 3), (16384, 8), (1024, 5)])
+def test_partition_cost_chunks_edge_cases(n, max_p):
+    """Rows aimed at the power-of-two path: an all-zero row, u = 2^32 - 1 (k
+    reaches 31, every part 64-bit), small codes then huge ones (32-bit and
+    64-bit warps in one row), codes at the escape threshold of every order's
+    k and one above, zero runs of 1-6 at chunk and part edges, all-zero
+    chunks, a run across parts."""
+    R = _chunk_r(n)
+    assert R and (n >> max_p) % R == 0
+    rng = np.random.RandomState(n + max_p)
+    init_k = _init_k(4 + max_p + 2, max_p, seed=n)
+    init_k[2] = 31  # the format's largest k at a part's first sample
+    rows = [np.zeros(n, np.uint64), np.full(n, (1 << 32) - 1, np.uint64),
+            np.concatenate([rng.randint(0, 1 << 10, n // 2), rng.randint(1 << 31, 1 << 32, n // 2, dtype=np.uint64)])]
+    rows += [np.minimum(_escape_row(n, p, init_k[3 + p], rng), (1 << 32) - 1) for p in range(1, max_p + 1)]
+    rows += _edge_rows(n, R, rng)
+    codes = np.stack(rows).astype(np.uint32).view(np.int32)
+    last, nxt = _breaks(codes)
+    init_k = init_k[: len(codes)]
+    want = ref_partition_cost_sums(codes, last, nxt, init_k, max_p)
+    np.testing.assert_array_equal(model_partition_chunks(codes, last, nxt, init_k, max_p), want)
+    np.testing.assert_array_equal(
+        K.partition_cost_sums(_t(codes), _t(last), _t(nxt), _t(init_k), max_p).numpy(), want)
+    assert want[0, :, 3].all() and not want[1, :, 3].any()
+
+
+def test_partition_cost_chunk_path_is_the_power_of_two_rows():
+    """The main path's rows take the chunk path and other lengths the general
+    one; on the chunk path every part of every order the kernel takes is a
+    whole number of chunks, and a row fits one block."""
+    assert _chunk_r(16384) == 16 and _chunk_r(256) == 8
+    for n in (1000, 1001, 2044, 4113, 12288):
+        assert _chunk_r(n) == 0
+    for n in (1 << e for e in range(6, 15)):
+        R = _chunk_r(n)
+        assert n // R <= 1024
+        for max_p in range(1, C.MAX_PARTITION_ORDER + 1):
+            if (n >> max_p) >= C.MIN_PARTITION_SIZE:
+                assert (n >> max_p) % R == 0
+
+
+def test_partition_bound_counts_each_part_at_its_width():
+    """chip_smoke.py's kernel-10 bound counts each part of orders 1..max_p
+    at the 32-bit count where the part sums below 2^31 and at the 64-bit
+    count elsewhere; the last part runs to n."""
+    import chip_smoke
+
+    narrow, wide = chip_smoke.PARTITION_OPS
+    n, max_p = 1001, 3
+    codes = np.ones((2, n), np.uint32)
+    codes[1, -1] = (1 << 32) - 1  # only each order's last part sums past 2^31
+    x = (_t(codes.view(np.int32)), None, None, torch.zeros((2, K.partition_parts(max_p)), dtype=torch.int32))
+    last = [n - ((1 << p) - 1) * (n >> p) for p in range(1, max_p + 1)]  # 501, 251, 126
+    assert chip_smoke.partition_ops(x) == narrow * n * max_p + sum(wide * m + narrow * (n - m) for m in last)
 
 
 def test_partition_cost_sums_refuses_a_wrong_part_table():
@@ -378,6 +614,7 @@ def test_model_constants_match_the_source():
     assert _constant("kMaxOrder") == C.MAX_PARTITION_ORDER
     assert _constant("kMinPart") == C.MIN_PARTITION_SIZE
     assert _constant("kMaxN") == C.MAX_BLOCK_SIZE
+    assert (_constant("kChunkMinR"), _constant("kChunkMaxLanes")) == (8, 1024)  # _chunk_r's rule
     assert _constant("kZeroRunMin") == C.ZERO_RUN_MIN_LENGTH
     assert _constant("kZeroRunK") == C.ZERO_RUN_LENGTH_K
     assert (_constant("kEscapeKOffset"), _constant("kEscapeKCap")) == (C.ESCAPE_K_OFFSET, C.ESCAPE_K_CAP)
