@@ -218,11 +218,17 @@ def unpack_hostbuf(buf, K, kc, kind):
 class _ChunkJob:
     """One chunk of kc full blocks through analyze -> plan -> emit."""
 
-    def __init__(self, pipe, c0, kc, device):
+    def __init__(self, pipe, c0, kc, device, index):
         self.pipe = pipe
+        self.index = index  # the chunk's place in the pipeline
         self.c0 = c0  # first block index (within the full-block prefix)
         self.kc = kc  # blocks in this chunk (<= K)
         self.device = device  # the mesh entry this chunk runs on
+        self.card = str(device)
+
+    def phase(self, name):
+        """A span of this chunk's stage ``name``, tagged with the chunk and its card."""
+        return _dbg.phase(name, chunk=self.index, card=self.card)
 
     # rows of the analyze outputs, plane-major at the padded width K
     # (lac_tpu/device_pipeline.py:582-596, mesh None)
@@ -235,10 +241,10 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 1
     def dispatch_analyze(self):
         pipe = self.pipe
-        with _dbg.phase("plane_upload", self.device):
+        with self.phase("plane_upload"):
             lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
             rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
-        with _dbg.phase("analyze", self.device):
+        with self.phase("analyze"):
             self.dev = analyzed(lmat, rmat, pipe.K, pipe.kind)
         self.hostbuf = HostCopy(self.dev["hostbuf"])
         self.plags = HostCopy(self.dev["plags"]) if "plags" in self.dev else None
@@ -246,12 +252,13 @@ class _ChunkJob:
     def await_analyze(self):
         """Wait until the packed host buffer that the plan stage reads is
         on the host (``plags`` is awaited on the probe path alone)."""
-        self.hostbuf.numpy()
+        with self.phase("analyze_wait"):
+            self.hostbuf.numpy()
 
     # ------------------------------------------------------------ stage 2
     def dispatch_plan(self):
         pipe, K, kc = self.pipe, self.pipe.K, self.kc
-        with _dbg.phase("flags_fetch"):
+        with self.phase("flags_fetch"):
             cm, un, lags = unpack_hostbuf(self.hostbuf.numpy(), K, kc, pipe.kind)
         self.cm, self.un = cm, un
 
@@ -280,7 +287,7 @@ class _ChunkJob:
                 recs += [(i, "lr", 0), (i, "lr", 1)]
         self.rows, self.recs = np.asarray(rows, np.int64), recs
 
-        with _dbg.phase("host_ld"):
+        with self.phase("host_ld"):
             coeffs, used, lvalid, mvo = lpc_candidates_from_lags(lags[self.rows], N)
         self.coeffs, self.used, self.mvo = coeffs, used, mvo
         self.copies_meta = self._plan(self.dev["planes"], self.rows, coeffs, lvalid, N,
@@ -297,7 +304,7 @@ class _ChunkJob:
         meta rows."""
         pipe = self.pipe
         copies = []
-        with _dbg.phase("plan_dispatch", self.device):
+        with self.phase("plan_dispatch"):
             rows_t = upload(rows, self.device)
             ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
             for lo, nsub, bp in batches:
@@ -318,7 +325,7 @@ class _ChunkJob:
                         rows.append(self._probe_row_of(pl, int(i), pos))
                         recs.append((int(i), variant))
         self.probe_rows, self.probe_recs = np.asarray(rows, np.int64), recs
-        with _dbg.phase("host_ld"):
+        with self.phase("host_ld"):
             coeffs, used, lvalid, mvo = lpc_candidates_from_lags(plags[self.probe_rows], PROBE)
         self.probe_coeffs, self.probe_used, self.probe_mvo = coeffs, used, mvo
         # one fixed probe batch shape, 12 probe lanes x K blocks (lac_tpu/device_pipeline.py:859-876)
@@ -329,7 +336,7 @@ class _ChunkJob:
     # ------------------------------------------------------------ stage 3
     def finish(self):
         pipe, kc = self.pipe, self.kc
-        with _dbg.phase("meta_fetch"):
+        with self.phase("meta_fetch"):
             metas = [c.numpy() for c in self.copies_meta]
         meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
 
@@ -353,13 +360,13 @@ class _ChunkJob:
 
         sel = np.asarray([j for j, (i, v, _) in enumerate(self.recs) if _wins(i, v)], np.intp)
         recs = [self.recs[j] for j in sel]
-        with _dbg.phase("emit_prep"):
+        with self.phase("emit_prep"):
             rows = np.asarray([self.c0 + i for i, _, _ in recs], np.int32)
             variants = np.asarray([v == "ms" for _, v, _ in recs], np.uint8)
             slots = np.asarray([s for _, _, s in recs], np.uint8)
             starts = np.zeros(len(recs), np.uint32)
             plan = expand_plan(meta[sel], self.coeffs[:, sel], self.used[:, sel], self.mvo, N, pipe.partitioning)
-        with _dbg.phase("native_emit"):
+        with self.phase("native_emit"):
             payloads = native.emit_blocks_planes(
                 pipe.lview, pipe.rview, rows, variants, slots, starts, N, *plan, num_threads=pipe.thread_count,
             )
@@ -375,10 +382,10 @@ class _ChunkJob:
 
     def _finish_probes(self, flags):
         pipe = self.pipe
-        with _dbg.phase("meta_fetch"):
+        with self.phase("meta_fetch"):
             metas = [c.numpy() for c in self.probe_copies]
         meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
-        with _dbg.phase("emit_prep"):
+        with self.phase("emit_prep"):
             rows, variants, slots, starts = [], [], [], []
             for i in sorted({i for i, _ in self.probe_recs}):
                 for variant in ("lr", "ms"):
@@ -389,7 +396,7 @@ class _ChunkJob:
                             slots.append(slot)
                             starts.append(pos)
             plan = expand_plan(meta, self.probe_coeffs, self.probe_used, self.probe_mvo, PROBE, pipe.partitioning)
-        with _dbg.phase("native_emit"):
+        with self.phase("native_emit"):
             payloads = native.emit_blocks_planes(
                 pipe.lview, pipe.rview,
                 np.asarray(rows, np.int32), np.asarray(variants, np.uint8),
@@ -434,7 +441,7 @@ class PlanePipeline:
                 np.ascontiguousarray(right[: nfull * N].reshape(nfull, N), dtype=dt) if kind != "mono" else None
             )
         D = len(self.mesh)
-        self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0), self.mesh[j % D])
+        self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0), self.mesh[j % D], j)
                      for j, c0 in enumerate(range(0, nfull, self.K))]
 
     def run(self, progress_cb=None):
@@ -473,8 +480,12 @@ class PlanePipeline:
         so a chunk's native emit overlaps the dispatch of the chunks
         behind it. An entry analyzes its next chunk only once the chunk
         PIPE_DEPTH + 2 of its own back has been emitted, so each card holds
-        the buffers of as many chunks as a window of PIPE_DEPTH + 2."""
+        the buffers of as many chunks as a window of PIPE_DEPTH + 2. The
+        dispatch threads' spans are children of the calling thread's
+        innermost span; the emitting thread's wait for a chunk's plan stage
+        is its ``plan_wait`` span."""
         jobs, depth, D = self.jobs, PIPE_DEPTH, len(self.mesh)
+        parent = _dbg.current()
         window = depth + 2
         cv = threading.Condition()
         state = {"planned": set(), "emitted": 0, "failure": None, "abort": False}
@@ -495,7 +506,7 @@ class PlanePipeline:
                     cv.notify_all()
 
             try:
-                with on_card(self.mesh[s]):
+                with _dbg.adopt(parent), on_card(self.mesh[s]):
                     for i, job in enumerate(mine):
                         with cv:
                             if not go_on(lambda: i < window or state["emitted"] > s + (i - window) * D):
@@ -521,7 +532,7 @@ class PlanePipeline:
             t.start()
         try:
             for j in range(len(jobs)):
-                with cv:
+                with cv, jobs[j].phase("plan_wait"):
                     cv.wait_for(lambda: state["failure"] is not None or j in state["planned"])
                     if state["failure"] is not None:
                         raise state["failure"]

@@ -542,7 +542,7 @@ class _GroupJob:
         nd = len(enc.mesh) if enc.mesh is not None else 1
         self.Bp = -(-(1 << max(0, (B - 1).bit_length())) // nd) * nd
         small = int(self.pcm_np.min(initial=0)) >= -32768 and int(self.pcm_np.max(initial=0)) <= 32767
-        with _dbg.phase("h2d_upload", dev):
+        with _dbg.phase("h2d_upload"):
             pcm_pad = np.zeros((self.Bp, n), np.int16 if small else np.int32)
             pcm_pad[:B] = self.pcm_np
             self.pcm_pad = pcm_pad  # a mesh's shards (plan_group_sharded)
@@ -551,7 +551,7 @@ class _GroupJob:
         if self.need_lpc:
             # exact int64 lags of the padded batch on the device (lac_tpu/encoder.py:685-692);
             # the LD that needs them is next
-            with _dbg.phase("autocorr_fetch", dev):
+            with _dbg.phase("autocorr_fetch"):
                 self.R_np = lags_of(self.pcm_dev, self.Bp).cpu().numpy()
         if dev.type == "cuda":
             device_pipeline.mark_warm()  # this process now uses the card
@@ -573,7 +573,7 @@ class _GroupJob:
         R = self.R_np if self.need_lpc else None
         with _dbg.phase("host_ld"):
             self.coeffs, self.used, self.lvalid, self.mvo = enc.lpc_analysis(self.pcm_np, n, precomputed_R=R)
-        with _dbg.phase("plan_dispatch", self.dev):
+        with _dbg.phase("plan_dispatch"):
             if enc.mesh is not None:
                 from .parallel.mesh import plan_group_sharded
 
@@ -922,7 +922,8 @@ class FrameEncoder:
     def _channels(self, left, right):
         left = np.ascontiguousarray(left, dtype=np.int32)
         right = np.ascontiguousarray(right, dtype=np.int32) if len(right) else np.empty(0, np.int32)
-        self._validate(left, right)
+        with _dbg.phase("validate"):
+            self._validate(left, right)
         return left, right
 
     def encode(self, left, right=()):
@@ -931,7 +932,7 @@ class FrameEncoder:
         other lane, or without the native runtime the group route on this
         encoder's device. In a process that has not used the card yet, a
         short input takes the host route throughout (:func:`_cold_route`)."""
-        with _dbg.device_trace():
+        with _dbg.device_trace(), _dbg.request("encode"):
             return self._encode(left, right)
 
     def _encode(self, left, right):
@@ -1079,9 +1080,10 @@ class FrameEncoder:
 
         enc = ChannelBlockEncoder(self.zero_run_enabled, self.partitioning_enabled, self.thread_count,
                                   mesh=self.mesh if device is not None else None, device=device)
-        payloads = enc.encode_lanes(
-            lanes + [d for *_, d in probe_lanes] + [d for *_, d in dual_lanes] + [d for *_, d in spec_lanes]
-        )
+        with _dbg.phase("host_plan"):
+            payloads = enc.encode_lanes(
+                lanes + [d for *_, d in probe_lanes] + [d for *_, d in dual_lanes] + [d for *_, d in spec_lanes]
+            )
         off = len(lanes)
         probe_payloads = payloads[off : off + len(probe_lanes)]
         off += len(probe_lanes)

@@ -68,6 +68,7 @@ import torch
 from .format import constants as C
 from .format.partitions import max_partition_order_for_block
 from .ops import cuda_kernels
+from .utils import debug as _dbg
 
 MAX_GRAPHS = 64  # plans per card: lac_tpu bounds its plan executables alike (lru_cache(maxsize=64))
 MAX_ANALYZE_GRAPHS = 16  # lac_tpu/device_pipeline.py:120 (lru_cache(maxsize=16))
@@ -163,10 +164,11 @@ class GraphCache:
         self.stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
         self.lock = lock if lock is not None else threading.RLock()
 
-    def run(self, key, buffers, inputs, rows_out, device):
+    def run(self, key, buffers, inputs, rows_out, device, kind):
         """Fill the graph of ``key`` with ``inputs`` (first made by
         ``buffers()`` and captured), replay it, and return copies of its
-        outputs: their first ``rows_out`` rows, or all of them for None."""
+        outputs: their first ``rows_out`` rows, or all of them for None.
+        ``kind`` names the replay's span (:func:`replay_span`)."""
         with self.lock:
             entry = self.entries.get(key)
             if entry is None:
@@ -184,7 +186,14 @@ class GraphCache:
                 self.entries.move_to_end(key)
                 static, captured = entry
                 static.fill(*inputs)
-            captured.replay()
+            with replay_span(kind, key[1], inputs[0]) as span:
+                if span is not None and device.type == "cuda":
+                    span.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    span.events[0].record()
+                    captured.replay()
+                    span.events[1].record()
+                else:
+                    captured.replay()
             cuda_kernels.count_replay(captured.launches, device)
             self.stats["replays"] += 1
             return tuple((t if rows_out is None else t[:rows_out]).clone() for t in captured.out)
@@ -200,7 +209,7 @@ class GraphCache:
             raise ValueError(f"planned: a batch of {tuple(pcm.shape)} does not fit a plan of ({rows}, {n})")
         dev = pcm.device
         key = (dev.index, rows, n, bool(zero_run_enabled), bool(partitioning_enabled), bool(emit_fields))
-        out = self.run(key, lambda: Static(rows, n, dev), (pcm, lpc_coeffs, lpc_valid), nsub, dev)
+        out = self.run(key, lambda: Static(rows, n, dev), (pcm, lpc_coeffs, lpc_valid), nsub, dev, "plan")
         return out if emit_fields else out[0]
 
     def analyze(self, lmat, rmat, K, kind):
@@ -212,7 +221,7 @@ class GraphCache:
                              f"{C.MAX_BLOCK_SIZE})")
         key = (dev.index, int(K), kind, lmat.dtype)
         inputs = (lmat,) if kind == "mono" else (lmat, rmat)
-        out = self.run(key, lambda: analyze_buffers(K, kind, lmat.dtype, dev), inputs, None, dev)
+        out = self.run(key, lambda: analyze_buffers(K, kind, lmat.dtype, dev), inputs, None, dev, "analyze")
         return dict(zip(ANALYZE_OUT, out))
 
     def lags(self, pcm, rows):
@@ -223,7 +232,13 @@ class GraphCache:
             raise ValueError(f"lags_of: a batch of {tuple(pcm.shape)} does not fit ({rows}, {n})")
         dev = pcm.device
         key = (dev.index, int(rows), n, pcm.dtype)
-        return self.run(key, lambda: lag_buffers(rows, n, pcm.dtype, dev), (pcm,), B, dev)[0]
+        return self.run(key, lambda: lag_buffers(rows, n, pcm.dtype, dev), (pcm,), B, dev, "lags")[0]
+
+
+def replay_span(kind, rows, x):
+    """The ``replay`` span of a batch ``x`` (its rows, n) run as a graph of
+    ``rows`` rows of ``kind`` (an empty context unless spans are recorded)."""
+    return _dbg.phase("replay", kind=kind, rows=int(rows), real=int(x.shape[0]), n=int(x.shape[1]))
 
 
 # ------------------------------------------------------------------ the card
@@ -243,8 +258,8 @@ _capture_streams = {}
 # device allocations leave it whole. A device-wide synchronize does not:
 # from another thread it fails there (cudaErrorStreamCaptureUnsupported)
 # and invalidates the capture (``chip_smoke.py`` phase 15 runs both on
-# the card). Captures hold this lock, and the port's device-wide
-# synchronize (:func:`synchronize`) takes it.
+# the card). Captures hold this lock, and :func:`synchronize`, the
+# device-wide synchronize for tools and tests, takes it.
 capture_lock = threading.RLock()
 
 
@@ -369,8 +384,9 @@ def planned(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enable
     if pcm.device.type == "cpu":
         from .encoder import plan_group
 
-        return plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled,
-                          emit_fields=emit_fields)
+        with replay_span("plan", pcm.shape[0] if rows is None else rows, pcm):
+            return plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled,
+                              emit_fields=emit_fields)
     dev = pcm.device
     _on_default_stream(dev, "planned")
     with torch.cuda.device(dev):
@@ -391,9 +407,10 @@ def analyzed(lmat, rmat, K, kind):
     a failure raises."""
     dev = lmat.device
     if dev.type == "cpu":
-        static = analyze_buffers(K, kind, lmat.dtype, dev)
-        static.fill(*((lmat,) if kind == "mono" else (lmat, rmat)))
-        return dict(zip(ANALYZE_OUT, _analyze_static(static, kind)))
+        with replay_span("analyze", K, lmat):
+            static = analyze_buffers(K, kind, lmat.dtype, dev)
+            static.fill(*((lmat,) if kind == "mono" else (lmat, rmat)))
+            return dict(zip(ANALYZE_OUT, _analyze_static(static, kind)))
     _on_default_stream(dev, "analyzed")
     with torch.cuda.device(dev):
         return CACHES["analyze"].analyze(lmat, rmat, K, kind)
@@ -411,9 +428,10 @@ def lags_of(pcm, rows):
     if dev.type == "cpu":
         from .ops import lpc
 
-        static = lag_buffers(rows, pcm.shape[1], pcm.dtype, dev)
-        static.fill(pcm)
-        return lpc.autocorrelation(static.pcm, LAG_ORDER)[: pcm.shape[0]]
+        with replay_span("lags", rows, pcm):
+            static = lag_buffers(rows, pcm.shape[1], pcm.dtype, dev)
+            static.fill(pcm)
+            return lpc.autocorrelation(static.pcm, LAG_ORDER)[: pcm.shape[0]]
     _on_default_stream(dev, "lags_of")
     with torch.cuda.device(dev):
         return CACHES["lags"].lags(pcm, rows)

@@ -106,7 +106,7 @@ def test_analyze_equals_lac_tpu_jitted_analyze(kind, dtype, kc):
 
 @pytest.mark.parametrize("K,kc", [(8, 8), (8, 5), (256, 228), (64, 1)])
 def test_row_helpers_equal_lac_tpu(K, kc):
-    ours = device_pipeline._ChunkJob(types.SimpleNamespace(K=K), 0, kc, torch.device("cpu"))
+    ours = device_pipeline._ChunkJob(types.SimpleNamespace(K=K), 0, kc, torch.device("cpu"), 0)
     ref = ref_dp._ChunkJob(types.SimpleNamespace(K=K, mesh=None), 0, kc)
     for p in range(4):
         for i in range(kc):

@@ -470,7 +470,8 @@ def test_the_bound_counts_each_card_apart(maxsize):
     pcm = torch.ones((2, 8), dtype=torch.int32)
     for i in range(maxsize + 1):
         for card in (0, 1):
-            out = cache.run((card, i), lambda: plan_graphs.lag_buffers(4, 8, torch.int32, CPU), (pcm,), 2, CPU)
+            out = cache.run((card, i), lambda: plan_graphs.lag_buffers(4, 8, torch.int32, CPU), (pcm,), 2, CPU,
+                            "lags")
             assert torch.equal(out[0], torch.full((2,), 8))
     assert len(log) == 2 * (maxsize + 1)
     assert sorted(cache.entries) == sorted((card, i) for card in (0, 1) for i in range(1, maxsize + 1))
