@@ -30,6 +30,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .utils import debug as _dbg
+
 __version__ = "0.1.0"
 
 
@@ -40,15 +42,59 @@ def on_card(device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def upload(a, device):
-    """numpy array -> tensor on ``device`` (a card with an index lands on
-    that card, whatever this thread's current device). CUDA copies go
-    through pinned memory without blocking, so an upload never waits for
-    the device work queued before it."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+def torch_dtype(dtype):
+    """The torch dtype of numpy dtype ``dtype``."""
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def pinned_empty(shape, dtype):
+    """An uninitialised host tensor in page-locked memory from torch's
+    caching host allocator. Allocating runs no CPU operator, and the
+    allocator hands a freed block out again only once the copies recorded
+    on it have completed."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def pageable_empty(shape, dtype):
+    """An uninitialised host tensor in ordinary (pageable) memory."""
+    return torch.empty(shape, dtype=dtype)
+
+
+def host_empty(devices):
+    """The ``alloc(shape, dtype)`` of host tensors bound for ``devices``:
+    :func:`pinned_empty` where one of them is a card, else
+    :func:`pageable_empty`."""
+    return pinned_empty if any(torch.device(d).type == "cuda" for d in devices) else pageable_empty
+
+
+def stage(a, dtype=None, alloc=None):
+    """numpy array (or host tensor) -> a host tensor of its shape from
+    ``alloc(shape, dtype)`` (:func:`pinned_empty` by default), filled by
+    one ``np.copyto`` on the calling thread (cast to ``dtype`` where
+    given). No torch CPU operator touches the bytes, so torch's intra-op
+    thread pool is not woken, and a strided ``a`` costs no second copy."""
+    a = np.asarray(a)
+    t = (alloc or pinned_empty)(a.shape, torch_dtype(dtype or a.dtype))
+    np.copyto(t.numpy(), a, casting="unsafe")
     return t
+
+
+def upload(a, device):
+    """numpy array or host tensor -> tensor on ``device`` (a card with an
+    index lands on that card, whatever this thread's current device).
+
+    On the CPU the result shares ``a``'s memory where it can. On a card
+    the copy is asynchronous, so an upload never waits for the device
+    work queued before it: a pinned tensor is sent as it is, anything
+    else is first staged into fresh pinned memory by numpy
+    (:func:`stage`). There it records a span ``upload`` with ``bytes``,
+    the bytes sent, and ``staged``, the bytes copied on the host to stage
+    them."""
+    if device.type != "cuda":
+        return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    direct = isinstance(a, torch.Tensor) and a.is_pinned()
+    with _dbg.phase("upload", bytes=a.nbytes, staged=0 if direct else a.nbytes):
+        return (a if direct else stage(a)).to(device, non_blocking=True)
 
 
 class HostCopy:

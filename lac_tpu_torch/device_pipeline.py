@@ -47,7 +47,7 @@ import threading
 import numpy as np
 import torch
 
-from . import HostCopy, on_card, resolve_device, upload
+from . import HostCopy, host_empty, on_card, resolve_device, stage, upload
 from .encoder import expand_plan, lpc_candidates_from_lags, plan_inputs_to_torch
 from .format import constants as C
 from .ops.lpc import autocorrelation
@@ -242,8 +242,8 @@ class _ChunkJob:
     def dispatch_analyze(self):
         pipe = self.pipe
         with self.phase("plane_upload"):
-            lmat = upload(pipe.lview[self.c0 : self.c0 + self.kc], self.device)
-            rmat = upload(pipe.rview[self.c0 : self.c0 + self.kc], self.device) if pipe.rview is not None else lmat
+            lmat = upload(pipe.lhost[self.c0 : self.c0 + self.kc], self.device)
+            rmat = upload(pipe.rhost[self.c0 : self.c0 + self.kc], self.device) if pipe.rhost is not None else lmat
         with self.phase("analyze"):
             self.dev = analyzed(lmat, rmat, pipe.K, pipe.kind)
         self.hostbuf = HostCopy(self.dev["hostbuf"])
@@ -411,6 +411,16 @@ class _ChunkJob:
             flags[i] = 1 if t["ms"] < t["lr"] else 0
 
 
+def _planes(x, nfull, dt, alloc):
+    """The leading ``nfull`` blocks of channel ``x`` as (nfull, N) planes of
+    dtype ``dt``: ``x``'s own memory where it already is such planes, else
+    a host tensor from ``alloc`` filled by numpy (:func:`.stage`)."""
+    rows = x[: nfull * N].reshape(nfull, N)
+    if rows.dtype == dt and rows.flags.c_contiguous:
+        return rows
+    return stage(rows, dt, alloc)
+
+
 class PlanePipeline:
     """The plane pipeline over ``nfull`` full blocks on ``device``, or on
     the cards of ``mesh`` (a :func:`.parallel.make_mesh` tuple) when one
@@ -420,7 +430,15 @@ class PlanePipeline:
     ``views=(lview, rview)``, the rows of prebuilt (nfull, N) plane
     matrices (``rview`` None for mono) that may come from many files
     (:mod:`.pool`): once the planes are cut a block no longer knows its
-    file, so the pipeline is the same."""
+    file, so the pipeline is the same.
+
+    The plane matrices (``lhost``, ``rhost``) are host tensors in pinned
+    memory where they had to be built anyway (a pooled wave's, or 16-bit
+    planes cut from int32 channels), so that a chunk's planes go to the
+    card without a host copy; channels already in the plane dtype are used
+    as they are, and each upload stages its chunk on the dispatch thread.
+    The native emit reads numpy views of the same memory (``lview``,
+    ``rview``)."""
 
     def __init__(self, frame_enc, left, right, nfull, kind, device, views=None, mesh=None):
         # resolved here: a dispatch thread's current card is not the caller's
@@ -431,15 +449,15 @@ class PlanePipeline:
         self.thread_count = int(frame_enc.thread_count)
         self.K = chunk_width(nfull)
         if views is not None:
-            self.lview, self.rview = views
-            if self.lview.shape != (nfull, N) or (kind == "mono") != (self.rview is None):
+            self.lhost, self.rhost = views
+            if tuple(self.lhost.shape) != (nfull, N) or (kind == "mono") != (self.rhost is None):
                 raise ValueError("views must be (nfull, N) plane matrices, the right one None for mono")
         else:
             dt = np.int16 if frame_enc.bit_depth == 16 else np.int32
-            self.lview = np.ascontiguousarray(left[: nfull * N].reshape(nfull, N), dtype=dt)
-            self.rview = (
-                np.ascontiguousarray(right[: nfull * N].reshape(nfull, N), dtype=dt) if kind != "mono" else None
-            )
+            alloc = host_empty(self.mesh)
+            self.lhost = _planes(left, nfull, dt, alloc)
+            self.rhost = _planes(right, nfull, dt, alloc) if kind != "mono" else None
+        self.lview, self.rview = (m.numpy() if isinstance(m, torch.Tensor) else m for m in (self.lhost, self.rhost))
         D = len(self.mesh)
         self.jobs = [_ChunkJob(self, c0, min(self.K, nfull - c0), self.mesh[j % D], j)
                      for j, c0 in enumerate(range(0, nfull, self.K))]

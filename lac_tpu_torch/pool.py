@@ -47,15 +47,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import check_device
+from . import check_device, host_empty, torch_dtype
 from .format import constants as C
 from .utils import debug as _dbg
 
 __all__ = ["PreparedEncode", "prepare_encode_job", "run_group_wave", "split_waves", "encode_pooled"]
 
-# one wave's combined plane rows stay on the host for its lifetime; the
-# cap bounds that for a long queue (4096 blocks = 256 MB of int16 stereo
-# planes). Parity is unaffected: chunking never changes a lane's bytes.
+# one wave's combined plane rows stay on the host for its lifetime (in
+# pinned memory on a card); the cap bounds that for a long queue (4096
+# blocks = 256 MB of int16 stereo planes). Parity is unaffected:
+# chunking never changes a lane's bytes.
 _MAX_WAVE_BLOCKS = 4096
 
 _MODE_KIND = {C.STEREO_LR: "lr", C.STEREO_MS: "ms", C.STEREO_PER_BLOCK: "auto"}
@@ -141,14 +142,17 @@ def prepare_encode_job(parts):
                           key=key, opts=opts, effective_mode=effective_mode)
 
 
-def _build_views(group):
+def _build_views(group, alloc):
     """Concatenate the group's full-block plane rows into one (total, N)
-    matrix per channel; returns (lview, rview, spans)."""
+    host tensor per channel from ``alloc(shape, dtype)`` (pinned memory
+    for a wave on a card, :func:`.host_empty`), filled through numpy
+    views of it; returns (lmat, rmat, spans)."""
     N = C.MAX_BLOCK_SIZE
     total = sum(j.nfull for j in group)
-    dt = group[0].dt
-    lview = np.empty((total, N), dt)
-    rview = np.empty((total, N), dt) if group[0].kind != "mono" else None
+    dt = torch_dtype(group[0].dt)
+    lmat = alloc((total, N), dt)
+    rmat = alloc((total, N), dt) if group[0].kind != "mono" else None
+    lview, rview = lmat.numpy(), rmat.numpy() if rmat is not None else None
     spans = []
     off = 0
     for j in group:
@@ -161,7 +165,7 @@ def _build_views(group):
             rview[off : off + j.nfull] = right[: j.nfull * N].reshape(j.nfull, N)
         spans.append((off, j.nfull))
         off += j.nfull
-    return lview, rview, spans
+    return lmat, rmat, spans
 
 
 def run_group_wave(group, file_done, template_enc=None, device="cuda"):
@@ -185,9 +189,6 @@ def run_group_wave(group, file_done, template_enc=None, device="cuda"):
 def _run_group_wave(group, file_done, template_enc, device):
     from . import device_pipeline as DP
 
-    with _dbg.phase("wave_views"):
-        lview, rview, spans = _build_views(group)
-    total = lview.shape[0]
     if template_enc is None:
         from .cli import _resolve_threads
         from .encoder import FrameEncoder
@@ -200,6 +201,10 @@ def _run_group_wave(group, file_done, template_enc, device):
             from .parallel import default_mesh
 
             template_enc.set_mesh(default_mesh())
+    mesh = template_enc.mesh
+    with _dbg.phase("wave_views"):
+        lmat, rmat, spans = _build_views(group, host_empty(mesh or (template_enc.device,)))
+    total = lmat.shape[0]
 
     nxt = 0
 
@@ -216,9 +221,8 @@ def _run_group_wave(group, file_done, template_enc, device):
             file_done(nxt, (pp, fl, un))
             nxt += 1
 
-    mesh = template_enc.mesh
     pipe = DP.PlanePipeline(template_enc, None, None, total, group[0].kind,
-                            template_enc.device if mesh is None else None, views=(lview, rview), mesh=mesh)
+                            template_enc.device if mesh is None else None, views=(lmat, rmat), mesh=mesh)
     pipe.run(progress_cb=release)
     if nxt != len(spans):
         raise RuntimeError("wave ended with unreleased files")
