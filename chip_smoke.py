@@ -640,6 +640,19 @@ def time_ms(fn, x, iters=20):
     return start.elapsed_time(stop) / iters
 
 
+def check_tally(label, x):
+    """Kernel 10's tally of operands ``x`` (codes, breaks, initial k)
+    against its plain version's, each added to a tally already holding
+    counts; returns the kernel's count."""
+    max_p = (x[3].shape[1] + 2).bit_length() - 2  # 2^(max_p+1) - 2 parts
+    tallies = [torch.tensor([3, 4], dtype=torch.int64, device=x[0].device) for _ in range(2)]
+    K.partition_cost_sums(*x, max_p, tally=tallies[0])
+    K.partition_cost_sums_plain(*x, max_p, tallies[1])
+    got, want = (t.tolist() for t in tallies)
+    check(got == want, f"partition_cost_sums {label}: tally {got}, the plain version's {want}")
+    return [got[0] - 3, got[1] - 4]
+
+
 def check_kernels(rng):
     """Every case bit-exact; every path shape timed (plain, kernel, kernel,
     plain). Returns (the kernel records, name -> list of per-shape times)."""
@@ -656,6 +669,8 @@ def check_kernels(rng):
                 err = max(err, int((g - w).abs().max().item()) if g.numel() else 0)
             check(err == 0, f"{name} {label}: kernel differs from its plain version (max |diff| {err})")
             print(f"  {name:22s} {label:56s} exact")
+            if name == "partition_cost_sums":
+                print(f"    tally (parts summed the 64-bit way, parts): {check_tally(label, x)}")
             if timing is None:
                 continue
             t = [time_ms(plain, x), time_ms(kern, x), time_ms(kern, x), time_ms(plain, x)]

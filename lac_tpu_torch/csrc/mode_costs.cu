@@ -112,6 +112,15 @@
 //     barrier before the sums leave for device memory. The parts' initial k
 //     are staged in shared memory too; the zero breaks are read from device
 //     memory at every order.
+//   * A tally, where the caller passes one (lac_partition_cost_sums_tally):
+//     each block counts the parts whose codes sum to 2^31 or more (on the
+//     power-of-two path those a warp sums the 64-bit way; a warp whose other
+//     parts sum below it takes that way with them) and the parts it sums,
+//     each part once (on the power-of-two path by the lane of its first
+//     chunk, from the chunk prefixes, before the orders, so that the count
+//     holds no register through them; on the general path by the thread
+//     that stores the part), reduces them in shared memory and adds them to
+//     the tally with two u64 atomics. Without one nothing is counted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -273,6 +282,26 @@ mode_cost_rows(const uint32_t* __restrict__ u, const int* __restrict__ k_after, 
 
 // --------------------------------------------------------------- kernel 10
 
+// A launch's tally: the parts whose codes sum to 2^31 or more (the 64-bit
+// way) and every part summed, added to tally[0] and tally[1] once a block.
+// Every thread of the block calls it with its own counts.
+__device__ void add_tally(unsigned wide, unsigned parts, unsigned long long* tally) {
+  __shared__ unsigned block_sum[2];
+  if (threadIdx.x == 0) block_sum[0] = block_sum[1] = 0u;
+  __syncthreads();
+  wide = __reduce_add_sync(kFull, wide);
+  parts = __reduce_add_sync(kFull, parts);
+  if ((threadIdx.x & 31) == 0 && (wide | parts) != 0u) {
+    atomicAdd(block_sum, wide);
+    atomicAdd(block_sum + 1, parts);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(tally, (unsigned long long)block_sum[0]);
+    atomicAdd(tally + 1, (unsigned long long)block_sum[1]);
+  }
+}
+
 // Part e's sums: three u64 accumulators and a run flag in shared memory.
 __device__ __forceinline__ void flush(Sums s, unsigned long long* acc, unsigned* run, int e, int lane) {
   warp_reduce(s);
@@ -298,7 +327,8 @@ __device__ __forceinline__ void part_sample(const unsigned long long* P, const i
 
 __global__ void __launch_bounds__(1024, 1)
 partition_cost_rows(const uint32_t* __restrict__ u, const int* __restrict__ last_nz, const int* __restrict__ next_nz,
-                    const int* __restrict__ init_k, int n, int max_p, long long* __restrict__ out) {
+                    const int* __restrict__ init_k, int n, int max_p, long long* __restrict__ out,
+                    unsigned long long* __restrict__ tally) {
   extern __shared__ unsigned long long smem[];
   __shared__ unsigned long long warp_total[32];
   const int parts = (2 << max_p) - 2;  // orders 1..max_p, order p's parts at 2^p - 2
@@ -368,12 +398,18 @@ partition_cost_rows(const uint32_t* __restrict__ u, const int* __restrict__ last
   }
   __syncthreads();
   long long* dst = out + row * parts * 4;
+  unsigned wide = 0u;
   for (int e = threadIdx.x; e < parts; e += blockDim.x) {
     dst[4 * e] = (long long)acc[3 * e];
     dst[4 * e + 1] = (long long)acc[3 * e + 1];
     dst[4 * e + 2] = (long long)acc[3 * e + 2];
     dst[4 * e + 3] = run[e] ? 1 : 0;
+    if (tally != nullptr) {
+      const int p = 31 - __clz(e + 2), j = e + 2 - (1 << p), base = n >> p;  // part j of order p
+      wide += P[j == (1 << p) - 1 ? n : (j + 1) * base] - P[j * base] >= (1ull << 31) ? 1u : 0u;
+    }
   }
+  if (tally != nullptr) add_tally(wide, threadIdx.x == 0 ? (unsigned)parts : 0u, tally);
 }
 
 // ------------------------------------------- kernel 10, power-of-two rows
@@ -520,7 +556,7 @@ template <int R>
 __global__ void __launch_bounds__(1024)
 partition_cost_chunks(const uint32_t* __restrict__ u, const int* __restrict__ last_nz,
                       const int* __restrict__ next_nz, const int* __restrict__ init_k, long long rows, int log2n,
-                      int max_p, long long* __restrict__ out) {
+                      int max_p, long long* __restrict__ out, unsigned long long* __restrict__ tally) {
   extern __shared__ __align__(16) unsigned char chunk_smem[];
   __shared__ unsigned long long warp_sum[32], warp_before[32];
   static_assert(R == 8 || R == 16, "chunk_r gives 8 or 16 for n <= kMaxN");
@@ -631,6 +667,17 @@ partition_cost_chunks(const uint32_t* __restrict__ u, const int* __restrict__ la
   if (ci < L) Pc[ci] = Pa;
   if (ci == L - 1) Pc[L] = Pa + sum;
   __syncthreads();
+  if (tally != nullptr) {  // before the orders, so that nothing of it stays live through them
+    unsigned wide = 0u, led = 0u;  // the parts whose first chunk is this lane's, each counted once
+    for (int p = 1; p <= max_p; ++p) {
+      const int G = 1 << (log2n - p - kLog2R);
+      if (live && (ci & (G - 1)) == 0) {
+        ++led;
+        wide += Pc[ci + G] - Pc[ci] >= (1ull << 31) ? 1u : 0u;
+      }
+    }
+    add_tally(wide, led, tally);
+  }
 
   for (int p = 1; p <= max_p; ++p) {
     const int gshift = log2n - p - kLog2R, G = 1 << gshift;  // lanes a part
@@ -685,13 +732,14 @@ bool g_smem_set[64];
 
 template <int R>
 void launch_chunks(const uint32_t* u, const int* last_nz, const int* next_nz, const int* init_k, long long rows,
-                   int n, int max_p, long long* out, cudaStream_t s) {
+                   int n, int max_p, long long* out, unsigned long long* tally, cudaStream_t s) {
   const int L = n / R, Tr = L > 32 ? L : 32, threads = Tr > kChunkBlock ? Tr : kChunkBlock;
   int log2n = 0;
   while ((1 << log2n) < n) ++log2n;
   const unsigned blocks = (unsigned)((rows + threads / Tr - 1) / (threads / Tr));
   const size_t smem = (size_t)(threads / Tr) * chunk_row_bytes(L, (2 << max_p) - 2);
-  partition_cost_chunks<R><<<blocks, threads, smem, s>>>(u, last_nz, next_nz, init_k, rows, log2n, max_p, out);
+  partition_cost_chunks<R><<<blocks, threads, smem, s>>>(u, last_nz, next_nz, init_k, rows, log2n, max_p, out,
+                                                         tally);
 }
 
 }  // namespace
@@ -730,11 +778,13 @@ extern "C" int lac_partition_cost_path(long long n) { return chunk_r(n); }
 // own, runs.zero_breaks) and init_k (rows, 2^(max_p+1) - 2) int32 (each
 // part's initial k, 0..31, order by order), all contiguous -> out (rows,
 // 2^(max_p+1) - 2, 4) int64: rice, bin and zr bits and has_run per part.
-// Needs 1 <= max_p <= 8, n >> max_p >= 32 and n <= 16384. Returns a
-// cudaError_t.
-extern "C" int lac_partition_cost_sums(const void* u, const void* last_nz, const void* next_nz, const void* init_k,
-                                       long long rows, long long n, long long max_p, void* out, void* stream,
-                                       int device) {
+// Needs 1 <= max_p <= 8, n >> max_p >= 32 and n <= 16384. With a tally
+// (2,) u64, or null: the launch adds to tally[0] its parts whose codes sum
+// to 2^31 or more (summed the 64-bit way) and to tally[1] every part it
+// sums (rows x (2^(max_p+1) - 2)). Returns a cudaError_t.
+extern "C" int lac_partition_cost_sums_tally(const void* u, const void* last_nz, const void* next_nz,
+                                             const void* init_k, long long rows, long long n, long long max_p,
+                                             void* out, void* tally, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rows < 0 || rows > 0x7FFFFFFFLL || max_p < 1 || max_p > kMaxOrder || n > kMaxN || (n >> max_p) < kMinPart) {
@@ -748,11 +798,12 @@ extern "C" int lac_partition_cost_sums(const void* u, const void* last_nz, const
   const auto* nx = static_cast<const int*>(next_nz);
   const auto* ik = static_cast<const int*>(init_k);
   auto* o = static_cast<long long*>(out);
+  auto* t = static_cast<unsigned long long*>(tally);
   const int r = chunk_r(n);
   if (r == 16) {
-    launch_chunks<16>(uu, ln, nx, ik, rows, (int)n, (int)max_p, o, s);
+    launch_chunks<16>(uu, ln, nx, ik, rows, (int)n, (int)max_p, o, t, s);
   } else if (r == 8) {
-    launch_chunks<8>(uu, ln, nx, ik, rows, (int)n, (int)max_p, o, s);
+    launch_chunks<8>(uu, ln, nx, ik, rows, (int)n, (int)max_p, o, t, s);
   } else {
     if (!g_smem_set[device]) {
       const size_t max_smem = (size_t)(kMaxN + 1) * 8 + (size_t)kMaxParts * (3 * 8 + 4 + 4);
@@ -764,7 +815,15 @@ extern "C" int lac_partition_cost_sums(const void* u, const void* last_nz, const
     const size_t smem = (size_t)(n + 1) * 8 + (size_t)parts * (3 * 8 + 4 + 4);
     // a warp for each 512 samples, 1..32
     const int warps = (int)(n / 512 < 1 ? 1 : (n / 512 > 32 ? 32 : n / 512));
-    partition_cost_rows<<<(unsigned)rows, warps * 32, smem, s>>>(uu, ln, nx, ik, (int)n, (int)max_p, o);
+    partition_cost_rows<<<(unsigned)rows, warps * 32, smem, s>>>(uu, ln, nx, ik, (int)n, (int)max_p, o, t);
   }
   return (int)cudaGetLastError();
+}
+
+// lac_partition_cost_sums_tally without a tally: the entry every version of
+// this file has, which tools that build another version beside this one call.
+extern "C" int lac_partition_cost_sums(const void* u, const void* last_nz, const void* next_nz, const void* init_k,
+                                       long long rows, long long n, long long max_p, void* out, void* stream,
+                                       int device) {
+  return lac_partition_cost_sums_tally(u, last_nz, next_nz, init_k, rows, n, max_p, out, nullptr, stream, device);
 }

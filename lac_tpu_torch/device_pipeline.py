@@ -17,7 +17,8 @@ Per chunk of K full blocks:
    block rows on the device and plan them in batches padded to a fixed
    lane count, each a replay of a captured ``encoder.plan_group``
    (:func:`.plan_graphs.planned`); only the compact ``meta`` rows come
-   back,
+   back, with the plans' tally of kernel 10's parts summed the 64-bit way
+   (the ``meta_fetch`` span's ``wide`` and ``parts``),
 4. replay the plans natively on the host (``lac_emit_blocks_planes``).
 
 Uncertain stereo blocks stay in the pipeline: their probe lanes for both
@@ -290,29 +291,32 @@ class _ChunkJob:
         with self.phase("host_ld"):
             coeffs, used, lvalid, mvo = lpc_candidates_from_lags(lags[self.rows], N)
         self.coeffs, self.used, self.mvo = coeffs, used, mvo
-        self.copies_meta = self._plan(self.dev["planes"], self.rows, coeffs, lvalid, N,
-                                      plan_batches(len(rows), K))
+        self.copies_meta, self.tally = self._plan(self.dev["planes"], self.rows, coeffs, lvalid, N,
+                                                  plan_batches(len(rows), K))
 
         if pipe.kind == "auto" and un.any():
             self._dispatch_probe_plan()
         else:
-            self.probe_copies = None
+            self.probe_copies = self.probe_tally = None
 
     def _plan(self, src, rows, coeffs, lvalid, n, batches):
         """Gather ``rows`` of ``src`` and plan them batch by batch, each at
         its padded shape ``bp``; returns the started host copies of the
-        meta rows."""
+        meta rows and of the batches' tally (kernel 10's parts summed the
+        64-bit way and in all, ``planned``), the tally's queued first so
+        that it is on the host once the metas are."""
         pipe = self.pipe
-        copies = []
         with self.phase("plan_dispatch"):
             rows_t = upload(rows, self.device)
             ct, vt = plan_inputs_to_torch(coeffs, lvalid, self.device)
+            tally = torch.zeros(2, dtype=torch.int64, device=self.device)
+            metas = []
             for lo, nsub, bp in batches:
                 g = src.index_select(0, rows_t[lo : lo + nsub])
-                meta = planned(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
-                               pipe.zero_run, pipe.partitioning, rows=bp)
-                copies.append(HostCopy(meta))
-        return copies
+                metas.append(planned(g, ct[:, lo : lo + nsub], vt[:, lo : lo + nsub], n,
+                                     pipe.zero_run, pipe.partitioning, rows=bp, tally=tally))
+            tally_copy = HostCopy(tally)
+            return [HostCopy(meta) for meta in metas], tally_copy
 
     def _dispatch_probe_plan(self):
         pipe, K = self.pipe, self.pipe.K
@@ -331,14 +335,23 @@ class _ChunkJob:
         # one fixed probe batch shape, 12 probe lanes x K blocks (lac_tpu/device_pipeline.py:859-876)
         cap = 12 * K
         batches = [(lo, min(cap, len(rows) - lo), cap) for lo in range(0, len(rows), cap)]
-        self.probe_copies = self._plan(self.dev["probes"], self.probe_rows, coeffs, lvalid, PROBE, batches)
+        self.probe_copies, self.probe_tally = self._plan(self.dev["probes"], self.probe_rows, coeffs, lvalid,
+                                                         PROBE, batches)
 
     # ------------------------------------------------------------ stage 3
+    def _fetch_metas(self, copies, tally):
+        """The plan batches' meta rows, in one ``meta_fetch`` span that
+        records the batches' tally as ``wide`` (kernel 10's parts summed
+        the 64-bit way) and ``parts`` (the parts it summed)."""
+        with self.phase("meta_fetch") as span:
+            metas = [c.numpy() for c in copies]
+            if span is not None:
+                span.attrs["wide"], span.attrs["parts"] = (int(x) for x in tally.numpy())
+        return np.concatenate(metas) if len(metas) > 1 else metas[0]
+
     def finish(self):
         pipe, kc = self.pipe, self.kc
-        with self.phase("meta_fetch"):
-            metas = [c.numpy() for c in self.copies_meta]
-        meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
+        meta = self._fetch_metas(self.copies_meta, self.tally)
 
         # resolve uncertain stereo decisions before full-lane emission:
         # both full variants were planned, only the winner is emitted
@@ -382,9 +395,7 @@ class _ChunkJob:
 
     def _finish_probes(self, flags):
         pipe = self.pipe
-        with self.phase("meta_fetch"):
-            metas = [c.numpy() for c in self.probe_copies]
-        meta = np.concatenate(metas) if len(metas) > 1 else metas[0]
+        meta = self._fetch_metas(self.probe_copies, self.probe_tally)
         with self.phase("emit_prep"):
             rows, variants, slots, starts = [], [], [], []
             for i in sorted({i for i, _ in self.probe_recs}):

@@ -119,7 +119,8 @@ def _ptype_table(device):
     return torch.tensor([t for t, _ in _CANDIDATES], dtype=torch.int64, device=device)
 
 
-def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False):
+def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False,
+               tally=None):
     """pcm (B, n) + LPC candidates -> plan ``meta`` (B, 3 + 2 * max_parts) int8:
     selected candidate, partition order, lane in-range flag, then the
     partition modes and ks (lac_tpu/encoder.py:443-459).
@@ -132,6 +133,11 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
     little-endian bytes, then ``headcode = cls | head_val << 3 | head_len
     << 6`` and k (lac_tpu/encoder.py:461-502), what
     :meth:`ChannelBlockEncoder._emit` packs when there is no native replay.
+
+    ``tally``, where given, a (2,) int64 tensor on ``pcm``'s device, gets
+    the partition sweep's count of parts summed the 64-bit way and of parts
+    summed (``cuda_kernels.partition_cost_sums``); nothing with
+    partitioning off.
     """
     dev = pcm.device
     B = pcm.shape[0]
@@ -224,7 +230,7 @@ def plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_ena
             # every order's initial and static k first, then every part's mode costs from one launch
             u_w32 = u_w.to(torch.int32)
             init_k_parts, static_parts = _partition_k_costs(u_w, u_w32, max_p)
-            part_costs = partition_cost_sums(u_w32, last_nz, next_nz, init_k_parts, max_p)
+            part_costs = partition_cost_sums(u_w32, last_nz, next_nz, init_k_parts, max_p, tally=tally)
 
         for p, sc in enumerate(static_parts, 1):
             nparts = 1 << p

@@ -42,7 +42,7 @@ _ENTRIES = {
     "lac_recurrence_restore": ("p", "p", "p", "p", "p", "p", "i", "i", "p", "p"),
     "lac_rice_scan_tokenize": ("p", "i", "i", "p", "p", "i", "p", "p"),
     "lac_mode_cost_sums": ("p", "p", "p", "p", "p", "i", "i", "p"),
-    "lac_partition_cost_sums": ("p", "p", "p", "p", "i", "i", "i", "p"),
+    "lac_partition_cost_sums_tally": ("p", "p", "p", "p", "i", "i", "i", "p", "p"),
 }
 # C entry -> argument kinds of the entries that launch nothing (no stream, no
 # device) and return an int

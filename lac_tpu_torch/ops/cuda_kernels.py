@@ -580,7 +580,7 @@ def partition_parts(max_p):
     return (2 << max_p) - 2
 
 
-def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
+def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p, tally=None):
     from .adapt import k_after_stateless
     from .runs import run_geometry
 
@@ -593,6 +593,7 @@ def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     csz_lo = torch.cat([zero1, torch.cumsum(u & 0xFFFF, dim=-1)], dim=-1)
     idx = torch.arange(n, device=dev)
     out = []
+    wide = []  # per order: parts whose codes sum to 2^31 or more
     for p in range(1, max_p + 1):
         nparts, base = 1 << p, n >> p
         # the geometry on the device (a host copy would break a graph capture): the
@@ -606,6 +607,9 @@ def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
             return a[:, part]
 
         init_k_seg = init_k_parts[:, nparts - 2 : 2 * nparts - 2]
+        if tally is not None:
+            part_sum = ((csz_hi[:, ends] - csz_hi[:, starts]) << 16) + csz_lo[:, ends] - csz_lo[:, starts]
+            wide.append((part_sum >= 1 << 31).sum())
         # stateless per-sample k from segment sums of the split cumsums
         seg_hi = csz_hi[:, 1:] - rep(csz_hi[:, starts])
         seg_lo = csz_lo[:, 1:] - rep(csz_lo[:, starts])
@@ -624,6 +628,9 @@ def partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
             sums = [seg[..., 0], seg[..., 1], seg[..., 2]]
             has_run_s = seg[..., 3] > 0
         out.append(torch.stack([*sums, has_run_s.to(torch.int64)], dim=-1))
+    if tally is not None:  # device ops alone, as the rest
+        tally[0] += sum(wide)
+        tally[1] += B * partition_parts(max_p)
     return torch.cat(out, dim=1)
 
 
@@ -638,7 +645,7 @@ def partition_cost_path(n):
     return ("chunks", r) if r else ("rows", 0)
 
 
-def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
+def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p, *, tally=None):
     """Mode costs of every part of partition orders 1..``max_p`` of (B, n)
     u32 codes (int32 view): order p cuts a row into 2^p parts of ``n >> p``
     samples, the last part taking the remainder; each part's first sample
@@ -650,7 +657,13 @@ def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     part. Returns (B, 2^(max_p+1) - 2, 4) int64: rice, bin and zero-run
     bits and has_run (0 or 1) per part. Needs 1 <= max_p <= 8, parts of at
     least MIN_PARTITION_SIZE samples, n <= MAX_BLOCK_SIZE and, on the card,
-    initial k in 0..31 (the planner's are 0..INITIAL_MAX_K)."""
+    initial k in 0..31 (the planner's are 0..INITIAL_MAX_K).
+
+    ``tally``, where given, is a (2,) int64 tensor on the codes' device to
+    which the call adds the parts whose codes sum to 2^31 or more (those
+    the card's kernel sums the 64-bit way) and the parts it sums, B x
+    (2^(max_p+1) - 2). The card adds them in the kernel, so a captured
+    graph counts at each replay."""
     B, n = u32_w.shape if u32_w.dim() == 2 else (None, None)
     if (not 1 <= max_p <= C.MAX_PARTITION_ORDER or n is None or n > C.MAX_BLOCK_SIZE
             or (n >> max_p) < C.MIN_PARTITION_SIZE):
@@ -660,10 +673,15 @@ def partition_cost_sums(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p):
     if init_k_parts.dim() != 2 or init_k_parts.shape[1] != partition_parts(max_p):
         raise ValueError(f"partition_cost_sums: want init_k_parts (B, {partition_parts(max_p)}), got "
                          f"{tuple(init_k_parts.shape)}")
+    if tally is not None and (tally.dtype != torch.int64 or tuple(tally.shape) != (2,) or not tally.is_contiguous()
+                              or tally.device != u32_w.device):
+        raise ValueError(f"partition_cost_sums: want a contiguous (2,) int64 tally on {u32_w.device}, got "
+                         f"{tally.dtype} {tuple(tally.shape)} on {tally.device}")
     if _mode_cost_operands("partition_cost_sums", (u32_w, last_nz_w, next_nz_w), init_k_parts):
-        return partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p)
+        return partition_cost_sums_plain(u32_w, last_nz_w, next_nz_w, init_k_parts, max_p, tally)
     out = torch.empty((B, partition_parts(max_p), 4), dtype=torch.int64, device=u32_w.device)
-    _launch("lac_partition_cost_sums", u32_w, *(t.data_ptr() for t in (u32_w, last_nz_w, next_nz_w, init_k_parts)),
-            B, n, max_p, out.data_ptr())
+    _launch("lac_partition_cost_sums_tally", u32_w,
+            *(t.data_ptr() for t in (u32_w, last_nz_w, next_nz_w, init_k_parts)), B, n, max_p, out.data_ptr(),
+            tally.data_ptr() if tally is not None else None)
     _count("partition_cost_sums", u32_w.device)
     return out

@@ -33,7 +33,9 @@ A replay, in order, on the caller's stream (the card's default stream):
    are zero, as ``lac_tpu`` pads (pcm 0, coefficients 0, valid False,
    plane rows 0), and rows that an earlier, fuller input left there are
    zeroed;
-2. the graph is replayed;
+2. the graph is replayed; a plan graph's tally (kernel 10's parts summed
+   the 64-bit way and in all, zeroed inside the graph) is added to the
+   caller's where the caller passes one;
 3. the outputs are copied out (``clone``) at once, the input's rows of a
    plan or lag batch, the whole K rows of an analyze.
 
@@ -135,12 +137,16 @@ class Captured:
     static buffers (a graph's bound ``replay`` keeps the graph alive),
     ``out`` holds the tensors it writes (a plan's ``meta``, then ``ship``
     with ``emit_fields``; an analyze's :data:`ANALYZE_OUT`; the lags),
-    ``launches`` the kernel launches of one replay by kernel name."""
+    ``launches`` the kernel launches of one replay by kernel name,
+    ``tally`` a plan graph's (2,) int64 count of kernel 10's parts summed
+    the 64-bit way and in all, which each replay writes anew
+    (:func:`capture_plan` sets it; None for the other kinds)."""
 
     def __init__(self, replay, out, launches):
         self.replay = replay
         self.out = tuple(out)
         self.launches = dict(launches)
+        self.tally = None
 
 
 class GraphCache:
@@ -164,11 +170,13 @@ class GraphCache:
         self.stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
         self.lock = lock if lock is not None else threading.RLock()
 
-    def run(self, key, buffers, inputs, rows_out, device, kind):
+    def run(self, key, buffers, inputs, rows_out, device, kind, tally=None):
         """Fill the graph of ``key`` with ``inputs`` (first made by
         ``buffers()`` and captured), replay it, and return copies of its
         outputs: their first ``rows_out`` rows, or all of them for None.
-        ``kind`` names the replay's span (:func:`replay_span`)."""
+        ``kind`` names the replay's span (:func:`replay_span`); ``tally``,
+        where given, gets the graph's tally added, read before the lock is
+        let go and another replay can write it."""
         with self.lock:
             entry = self.entries.get(key)
             if entry is None:
@@ -194,22 +202,24 @@ class GraphCache:
                     span.events[1].record()
                 else:
                     captured.replay()
+            if tally is not None:
+                tally += captured.tally
             cuda_kernels.count_replay(captured.launches, device)
             self.stats["replays"] += 1
             return tuple((t if rows_out is None else t[:rows_out]).clone() for t in captured.out)
 
     def plan(self, pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False,
-             rows=None):
+             rows=None, tally=None):
         """``plan_group``'s result for the batch ``pcm`` (nsub, n), planned
         as a batch of ``rows`` lanes (default nsub): ``meta`` (nsub, M),
-        with ``emit_fields`` ``(meta, ship)``."""
+        with ``emit_fields`` ``(meta, ship)``; ``tally`` as :func:`planned`."""
         nsub = pcm.shape[0]
         rows = nsub if rows is None else int(rows)
         if not 0 < nsub <= rows or pcm.shape[1] != n:
             raise ValueError(f"planned: a batch of {tuple(pcm.shape)} does not fit a plan of ({rows}, {n})")
         dev = pcm.device
         key = (dev.index, rows, n, bool(zero_run_enabled), bool(partitioning_enabled), bool(emit_fields))
-        out = self.run(key, lambda: Static(rows, n, dev), (pcm, lpc_coeffs, lpc_valid), nsub, dev, "plan")
+        out = self.run(key, lambda: Static(rows, n, dev), (pcm, lpc_coeffs, lpc_valid), nsub, dev, "plan", tally)
         return out if emit_fields else out[0]
 
     def analyze(self, lmat, rmat, K, kind):
@@ -318,17 +328,21 @@ def _capture(dev, run, prefill=None):
 
 def capture_plan(static, n, zero_run_enabled, partitioning_enabled, emit_fields):
     """Capture ``encoder.plan_group`` on ``static``'s card, its per-card
-    tables filled first (:func:`_prefill_tables`)."""
+    tables filled first (:func:`_prefill_tables`), with its tally: zeroed
+    and counted inside the graph."""
     from . import encoder
 
     dev = static.pcm.device
 
     def run():
+        tally = torch.zeros(2, dtype=torch.int64, device=dev)
         out = encoder.plan_group(static.pcm, static.coeffs, static.valid, n, zero_run_enabled,
-                                 partitioning_enabled, emit_fields=emit_fields)
-        return out if emit_fields else (out,)
+                                 partitioning_enabled, emit_fields=emit_fields, tally=tally)
+        return (*(out if emit_fields else (out,)), tally)
 
-    return _capture(dev, run, lambda: _prefill_tables(n, partitioning_enabled, dev))
+    captured = _capture(dev, run, lambda: _prefill_tables(n, partitioning_enabled, dev))
+    captured.out, captured.tally = captured.out[:-1], captured.out[-1]
+    return captured
 
 
 def _analyze_static(static, kind):
@@ -369,13 +383,17 @@ def _on_default_stream(dev, name):
                            f"which is safe only while their replays are serialised on one stream)")
 
 
-def planned(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False, rows=None):
+def planned(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields=False, rows=None,
+            tally=None):
     """``encoder.plan_group`` of the batch ``pcm`` (nsub, n) int32 (or
     int16) with its candidates ``lpc_coeffs`` (5, nsub, 13) int16 and
     ``lpc_valid`` (5, nsub) bool, planned as a batch of ``rows`` lanes
     (the caller's padded shape; default nsub). Returns ``plan_group``'s
     result for the nsub rows: ``meta``, or ``(meta, ship)`` with
-    ``emit_fields``.
+    ``emit_fields``. ``tally``, where given, a (2,) int64 tensor on the
+    batch's device, gets the plan's count of kernel 10's parts summed the
+    64-bit way and of parts summed, the padded rows' included on a card
+    (``cuda_kernels.partition_cost_sums``), added on the device.
 
     CPU tensors run ``plan_group`` on the nsub rows. CUDA tensors replay
     the graph of ``(card, rows, n, zero_run, partitioning, emit_fields)``,
@@ -386,12 +404,12 @@ def planned(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enable
 
         with replay_span("plan", pcm.shape[0] if rows is None else rows, pcm):
             return plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled,
-                              emit_fields=emit_fields)
+                              emit_fields=emit_fields, tally=tally)
     dev = pcm.device
     _on_default_stream(dev, "planned")
     with torch.cuda.device(dev):
         return _CACHE.plan(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, emit_fields,
-                           rows)
+                           rows, tally)
 
 
 def analyzed(lmat, rmat, K, kind):

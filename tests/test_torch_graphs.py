@@ -258,6 +258,43 @@ def test_replays_count_the_launches_taken_down_at_capture():
         cuda_kernels.reset_launches()
 
 
+def test_each_replay_adds_its_graph_tally():
+    """A plan graph zeroes and fills its own tally at each replay (here a
+    stand-in that reruns plan_group on the padded buffers), and each replay
+    adds it to the caller's: kernel 10's wide parts and parts, the padded
+    rows' included."""
+
+    def capture(static, n, zero_run, partitioning, emit_fields):
+        tally = torch.zeros(2, dtype=torch.int64)
+
+        def run():
+            tally.zero_()
+            return (plan_group(static.pcm, static.coeffs, static.valid, n, zero_run, partitioning, tally=tally),)
+
+        out = run()
+
+        def replay():
+            for o, fresh in zip(out, run()):
+                o.copy_(fresh)
+
+        captured = plan_graphs.Captured(replay, out, {})
+        captured.tally = tally
+        return captured
+
+    cache = plan_graphs.GraphCache(capture)
+    pcm, ct, vt = _probe_batch(12, 31)
+    # a loud noise row: its codes near 2^27, so its parts sum past 2^31
+    pcm[0] = torch.from_numpy(np.random.RandomState(31).randint(-(1 << 27), 1 << 27, 256).astype(pcm.numpy().dtype))
+    mine = torch.tensor([5, 6])
+    for _ in range(2):
+        got = cache.plan(pcm, ct, vt, 256, True, True, rows=16, tally=mine)
+        assert torch.equal(got, plan_group(pcm, ct, vt, 256, True, True))
+    one = torch.zeros(2, dtype=torch.int64)
+    plan_group(pcm, ct, vt, 256, True, True, tally=one)
+    assert one[0] > 0 and one[1] == 12 * cuda_kernels.partition_parts(3)
+    assert mine.tolist() == [5 + 2 * int(one[0]), 6 + 2 * 16 * cuda_kernels.partition_parts(3)]
+
+
 def test_recording_takes_launches_down_instead_of_counting_them():
     cuda_kernels.reset_launches()
     try:

@@ -382,9 +382,10 @@ def ref_mode_cost_sums(codes, k_after, initial_k, last, nxt):
     return np.stack([rice.sum(-1), bin_.sum(-1), zr.sum(-1), rs.any(-1)], axis=-1).astype(np.int64)
 
 
-def ref_partition_cost_sums(codes, last, nxt, init_k, max_p):
+def ref_partition_cost_sums(codes, last, nxt, init_k, max_p, xp=np):
     """lac_tpu/encoder.py's sweep (:323-388) for orders 1..max_p, each
-    part's sums from its own pieces."""
+    part's sums from its own pieces, computed with ``xp`` (numpy or
+    jax.numpy) and summed by part in numpy."""
     B, n = codes.shape
     u = codes.view(np.uint32)
     u64 = u.astype(np.uint64)
@@ -399,11 +400,13 @@ def ref_partition_cost_sums(codes, last, nxt, init_k, max_p):
         pos = np.concatenate([np.arange(sz, dtype=np.int64) for sz in sizes])
         seg_end = np.repeat(ends, sizes)
         seg_sum = cs[:, 1:] - np.repeat(cs[:, starts], sizes, axis=1)
-        k_after_sl = ref_adapt.k_after_stateless(seg_sum, pos, xp=np)
+        k_after_sl = np.asarray(ref_adapt.k_after_stateless(xp.asarray(seg_sum), xp.asarray(pos), xp=xp))
         init_seg = init_k[:, nparts - 2 : 2 * nparts - 2]
         k_used = np.where(pos == 0, np.repeat(init_seg, sizes, axis=1), ref_shift_right(k_after_sl, 1, xp=np))
-        rl, lr, rs = ref_runs.run_geometry(u == 0, last, nxt, pos, seg_end, xp=np)
-        rice, bin_, zr = ref_enc._mode_cost_fields(v, u, k_used.astype(np.int32), rl, lr, rs, np)
+        rl, lr, rs = ref_runs.run_geometry(*(xp.asarray(a) for a in (u == 0, last, nxt, pos, seg_end)), xp=xp)
+        rice, bin_, zr = (np.asarray(f) for f in ref_enc._mode_cost_fields(
+            *(xp.asarray(a) for a in (v, u, k_used.astype(np.int32), rl, lr, rs)), xp))
+        rs = np.asarray(rs)
         per = [np.add.reduceat(f.astype(np.uint64), starts, axis=1) for f in (rice, bin_, zr)]
         per.append(np.logical_or.reduceat(rs, starts, axis=1).astype(np.uint64))
         out.append(np.stack(per, axis=-1))
@@ -601,6 +604,73 @@ def test_partition_bound_counts_each_part_at_its_width():
     x = (_t(codes.view(np.int32)), None, None, torch.zeros((2, K.partition_parts(max_p)), dtype=torch.int32))
     last = [n - ((1 << p) - 1) * (n >> p) for p in range(1, max_p + 1)]  # 501, 251, 126
     assert chip_smoke.partition_ops(x) == narrow * n * max_p + sum(wide * m + narrow * (n - m) for m in last)
+
+
+def _tally_rows(level, n, seed):
+    """(rows, n) u32 codes at a level: ``16-bit``, codes of 16-bit audio's
+    residuals (below 2^17, zero runs among them: no part reaches 2^31);
+    ``threshold``, constant rows whose order-1 halves sum to 2^31 - n / 2,
+    exactly 2^31, and 2^31 in one half and 2^31 - 1 in the other;
+    ``24-bit``, codes of loud 24-bit audio's residuals, 2^19..2^20 (the
+    halves and quarters sum past 2^31, the eighths below it), one row with
+    silences."""
+    rng = np.random.RandomState(seed)
+    if level == "16-bit":
+        rows = [rng.randint(0, 1 << 17, n), rng.randint(0, 1 << 17, n) * (rng.rand(n) < 0.5)]
+    elif level == "threshold":
+        at = np.full(n, (1 << 31) // (n // 2), np.uint64)
+        last_less = at.copy()
+        last_less[-1] -= 1
+        rows = [at - 1, at, last_less]
+    else:
+        loud = rng.randint(1 << 19, 1 << 20, n)
+        quiet = loud.copy()
+        quiet[n // 3 : n // 3 + 700] = 0
+        rows = [loud, quiet]
+    return np.stack(rows).astype(np.uint32).view(np.int32)
+
+
+def _parts_past(codes, max_p):
+    """A numpy count of the parts of orders 1..max_p that sum to 2^31 or more."""
+    B, n = codes.shape
+    cs = np.concatenate([np.zeros((B, 1), np.uint64), np.cumsum(codes.view(np.uint32), 1, dtype=np.uint64)], 1)
+    count = 0
+    for p in range(1, max_p + 1):
+        edges = np.append(np.arange(1 << p) * (n >> p), n)
+        count += int((cs[:, edges[1:]] - cs[:, edges[:-1]] >= 1 << 31).sum())
+    return count
+
+
+@pytest.mark.parametrize("level", ["16-bit", "threshold", "24-bit"])
+@pytest.mark.parametrize("max_p", [1, 2, 3, 8])
+def test_partition_cost_sums_tallies_the_parts_summed_the_64_bit_way(level, max_p):
+    """At the planner's width, codes of 24-bit residuals whose order-1 and
+    order-2 parts reach 2^31 (the kernel's 64-bit parts): the sums equal
+    lac_tpu's under numpy and jax.numpy, and the tally counts the parts
+    that reach 2^31, adding to what it holds, and every part summed."""
+    import jax.numpy as jnp
+
+    n = C.MAX_BLOCK_SIZE
+    codes = _tally_rows(level, n, seed=max_p)
+    last, nxt = _breaks(codes)
+    init_k = _init_k(len(codes), max_p, seed=max_p)
+    tally = torch.tensor([5, 7], dtype=torch.int64)
+    got = K.partition_cost_sums(_t(codes), _t(last), _t(nxt), _t(init_k), max_p, tally=tally).numpy()
+    for xp in (np, jnp):
+        np.testing.assert_array_equal(got, ref_partition_cost_sums(codes, last, nxt, init_k, max_p, xp=xp))
+    wide = _parts_past(codes, max_p)
+    assert tally.tolist() == [5 + wide, 7 + len(codes) * K.partition_parts(max_p)]
+    # threshold: the second row's halves and the third row's first; 24-bit: both rows' halves and quarters
+    assert wide == {"16-bit": 0, "threshold": 3, "24-bit": 4 + (8 if max_p >= 2 else 0)}[level]
+    np.testing.assert_array_equal(got, K.partition_cost_sums(_t(codes), _t(last), _t(nxt), _t(init_k), max_p))
+
+
+def test_partition_cost_sums_refuses_a_bad_tally():
+    x = torch.zeros((2, 256), dtype=torch.int32)
+    k = torch.zeros((2, K.partition_parts(3)), dtype=torch.int32)
+    for tally in (torch.zeros(2, dtype=torch.int32), torch.zeros(3, dtype=torch.int64)):
+        with pytest.raises(ValueError):
+            K.partition_cost_sums(x, x, x, k, 3, tally=tally)
 
 
 def test_partition_cost_sums_refuses_a_wrong_part_table():

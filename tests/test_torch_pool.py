@@ -141,6 +141,64 @@ def test_encode_pooled_24bit():
     assert got == ref_pool.encode_pooled(items, 96000, 24, stereo_mode=2, xp=jnp)
 
 
+HIRES = ("tonal", "noise", "full-scale")
+
+
+def _full_scale(frames, seed):
+    """A 24-bit track that hits both rails: a sine driven 2% past full
+    scale, clipped to -2^23..2^23 - 1, with noise; the right channel its
+    negation plus noise of its own."""
+    rng = np.random.RandomState(seed)
+    lim = 1 << 23
+    t = np.arange(frames, dtype=np.float64)
+    sig = 1.02 * lim * np.sin(2 * np.pi * 997 * t / 96000) + rng.randint(-4096, 4096, frames)
+    left = np.clip(sig, -lim, lim - 1).astype(np.int32)
+    right = np.clip(-sig + rng.randint(-(1 << 20), 1 << 20, frames), -lim, lim - 1).astype(np.int32)
+    assert left.min() == -lim and left.max() == lim - 1
+    return left, right
+
+
+@pytest.fixture(scope="module")
+def hires_batch():
+    """Three 96 kHz / 24-bit tracks of 2-3 full blocks and a tail, pooled
+    as the benchmark's hires24 cell pools its batches: its tonal and noise
+    recipes, and a track at full scale."""
+    from benchmark import reference, signals
+
+    frames = (2 * B + 333, 3 * B + 1, 2 * B + 4000)
+    items = [signals.make_track(recipe, n, 96000, 24, 23 + i, "cpu") for i, (recipe, n) in
+             enumerate(zip(HIRES[:2], frames))]
+    items.append(_full_scale(frames[2], 25))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(device_pipeline, "CHUNK_BLOCKS", 4)
+        got = pool.encode_pooled(items, 96000, 24, stereo_mode=2, device="cpu")
+    cfg = {"channels": 2, "sample_rate": 96000, "bit_depth": 24, "stereo_mode": "auto"}
+    sample = [(i, b) for i, n in enumerate(frames) for b in range(-(-n // B))]
+    return {"items": items, "port": got, "np": _ref_numpy(items, 96000, 24, 2),
+            "jnp": ref_pool.encode_pooled(items, 96000, 24, stereo_mode=2, xp=jnp),
+            "judged": reference.judge(got, items, cfg, sample)}
+
+
+@pytest.mark.parametrize("i", range(len(HIRES)), ids=HIRES)
+def test_encode_pooled_hires24_tracks(hires_batch, i):
+    """Bytes equal lac_tpu's (numpy, and its pooled encode under
+    jax.numpy), the decode is PCM-exact, and the benchmark's plain
+    reference holds every block of every stream to its input and to the
+    reference encoder's plan."""
+    from lac_tpu_torch.decoder import FrameDecoder
+
+    got = hires_batch["port"][i]
+    assert got == hires_batch["np"][i] == hires_batch["jnp"][i]
+    left, right, hdr = FrameDecoder().decode(got)
+    want_l, want_r = hires_batch["items"][i]
+    np.testing.assert_array_equal(left, want_l)
+    np.testing.assert_array_equal(right, want_r)
+    assert (hdr.sample_rate, hdr.bit_depth) == (96000, 24)
+    judged = hires_batch["judged"]
+    assert (judged["files_wrong"], judged["blocks_wrong"], judged["plans_wrong"]) == (0, 0, 0), judged["notes"]
+    assert judged["blocks_judged"] == 3 + 4 + 3
+
+
 def test_encode_pooled_empty_list_and_single_item():
     assert pool.encode_pooled([], 44100, 16, device="cpu") == []
     item = _mix(B + 50, 21)

@@ -251,6 +251,38 @@ def test_replay_spans_give_the_plan_batches(recorded, monkeypatch, chunk, ladder
         assert any(rows == 8 for kind, rows, _, n in sum(per_chunk.values(), []) if kind == "plan" and n == N)
 
 
+@pytest.mark.parametrize("depth", [16, 24])
+def test_meta_fetch_spans_carry_the_plans_tally(recorded, monkeypatch, depth):
+    """Each chunk's ``meta_fetch`` spans, one for its full-width plans and
+    one for its probe plans, carry the tally of their batches: ``parts``,
+    every part kernel 10 summed (510 a full-width row, orders 1..8; 14 a
+    probe row, orders 1..3), and ``wide``, those whose codes reach 2^31:
+    none at 16 bits, some in loud 24-bit blocks."""
+    monkeypatch.setattr(device_pipeline, "CHUNK_BLOCKS", 2)
+    rng = np.random.RandomState(depth)
+    items = _items(depth, (2, 3))
+    if depth == 24:  # noise near full scale: residual codes about 2^24
+        items[1] = tuple(rng.randint(-(1 << 23), 1 << 23, len(x)).astype(np.int32) for x in items[1])
+    pool.encode_pooled(items, 96000 if depth == 24 else 44100, depth, device="cpu")
+    fetches = [s for s in debug.spans() if s.name == "meta_fetch"]
+    assert fetches and all({"chunk", "card", "wide", "parts"} <= set(s.attrs) for s in fetches)
+    by_chunk = collections.defaultdict(list)
+    for s in fetches:
+        by_chunk[s.attrs["chunk"]].append(s)
+    assert sorted(by_chunk) == [0, 1, 2]
+    probes = 0
+    for spans in by_chunk.values():
+        full, *probe = spans
+        assert full.attrs["parts"] > 0 and full.attrs["parts"] % 510 == 0
+        for s in probe:
+            assert s.attrs["parts"] > 0 and s.attrs["parts"] % 14 == 0
+            probes += 1
+        assert all(0 <= s.attrs["wide"] <= s.attrs["parts"] for s in spans)
+    wide = sum(s.attrs["wide"] for s in fetches)
+    assert wide == 0 if depth == 16 else wide > 0
+    assert probes > 0  # the probe plans ran and were tallied apart
+
+
 # ------------------------------------------------------------------ replays on a card
 
 
@@ -366,7 +398,7 @@ def test_each_new_reader_reads_a_cpu_run(recorded, monkeypatch):
     bench = copy.deepcopy(spec.load())
     for m in bench["per_layer"]:
         if m["name"] in NEW_METRICS:
-            assert m["workloads"] == ["cd16.pooled_tracks"] and m["moves"] == "encode_MBps"
+            assert m["workloads"] == ["cd16.pooled_tracks", "hires24.pooled_tracks"] and m["moves"] == "encode_MBps"
     mix = spec.mix("pooled_tracks")
     mix.update(track_s=[1.2, 1.6], batch_blocks=8, distinct_batches=2,
                judge={"batches": 2, "wave_blocks": 4096, "chunk_blocks": 2, "per_stereo": 2})
